@@ -9,8 +9,9 @@ Phases, each of which raises on failure:
 
 1. print the card's name and power limit; stop unless CUDA is available;
 2. build the CUDA kernels from tf_kaldi_speaker_tpu_torch/csrc;
-3. hold each kernel against its plain PyTorch version on the card at the
-   extraction path's shapes, and time both (CUDA events, median);
+3. hold each kernel against its plain PyTorch version on the card at fixed
+   shapes (dequant also bit for bit against the host codec), and time
+   both (CUDA events, median, L2 evicted) beside the kernel's bound;
 4. write a flagship-width x-vector model dir (random weights from a seed,
    non-trivial BatchNorm statistics, bf16 compute, fused pooling);
 5. write a compressed ark of 64 synthetic 30-dim utterances;
@@ -18,14 +19,19 @@ Phases, each of which raises on failure:
    (the main path: both kernels must launch) and through the host path,
    and hold the embeddings against each other and against a float32 CPU
    forward of the same checkpoint;
-7. serve 16 requests from 8 client threads through ``EmbeddingServer``
+7. replay every (shape, dtype) each kernel was launched at on the main
+   path through kernel and plain version, and time the mix against its
+   bound;
+8. serve 16 requests from 8 client threads through ``EmbeddingServer``
    and hold each reply against ``embed_utterance``.
 
 The line before the last is a JSON object with each kernel's route,
-source, launch count on the main path, error against its plain version
-and times; the last line is ``{"ok": true, "device": {...}}``.
+source, launch count on the main path, error against its plain version,
+times and bounds at the fixed shapes and over the main path's mix; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import os
 import shutil
@@ -66,10 +72,47 @@ N_UTTS = 64
 WORK_DIR = os.path.join("build", "chip_smoke")
 
 
+# Peaks of one H100 SXM for the bounds (from NVIDIA's data sheet): HBM3
+# bytes/s, and float32 FLOP/s outside the tensor
+# cores, which is where both kernels' arithmetic runs.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SOURCES = {
+    "cm_dequantize": ("tf_kaldi_speaker_tpu_torch/csrc/cm_dequant.cu",
+                      "tf_kaldi_speaker_tpu/ops/cm_dequant_pallas.py:28"),
+    "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling.cu",
+                             "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:35"),
+}
+# kernel vs plain: dequant 1 ulp (torch's CUDA division by a scalar
+# multiplies by the reciprocal); pooling f32 one-pass shifted sums against
+# two passes; bf16 one ulp (both round an f32 result)
+DEQ_TOL = dict(atol=1e-6, rtol=1e-6)
+POOL_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=0.0, rtol=2.0 ** -7)}
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dequant_cost(b, l, d):
+    """Bytes (codes read, headers read, f32 out written) and operations (a
+    multiply and an add per element) of cm_dequantize at [b, l, d]."""
+    return b * l * d * (1 + 4) + b * 4 * d * 4, 2 * b * l * d
+
+
+def pooling_cost(b, l, d, esize):
+    """Bytes (x and the f32 mask read, [b, 2d] written) and operations (a
+    subtract, a multiply and two multiply-adds per element) of the pooling."""
+    return b * l * d * esize + b * l * 4 + 2 * b * d * esize, 6 * b * l * d
+
+
 def time_ms(torch, fn, flush, runs=50, warmup=5):
-    """Median time of one call in ms, CUDA events around each call, with
-    the L2 cache flushed before each (the extraction path finds its
-    inputs cold)."""
+    """Median device time of one call in ms, CUDA events around each call,
+    with the 50 MB L2 evicted before each by a 256 MB memset (the
+    extraction path finds its inputs cold)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -86,72 +129,172 @@ def time_ms(torch, fn, flush, runs=50, warmup=5):
     return float(np.median(times))
 
 
-def check_close(name, got, want, atol, rtol):
+def check_close(name, got, want, atol, rtol, quiet=False):
     """max |got - want| and raise unless |got - want| <= atol + rtol |want|."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    err = float(diff.max())
+    err = float(diff.max()) if diff.numel() else 0.0
     if not bool((diff <= atol + rtol * want.abs()).all()):
         raise AssertionError("%s: max abs err %.3g exceeds atol %g + rtol %g"
                              % (name, err, atol, rtol))
-    print("%s: max abs err %.3g (atol %g, rtol %g) ok" % (name, err, atol, rtol))
+    if not quiet:
+        print("%s: max abs err %.3g (atol %g, rtol %g) ok" % (name, err, atol, rtol))
     return err
 
 
-def check_kernels(torch):
-    from tf_kaldi_speaker_tpu_torch.models.pooling import floor_sqrt, masked_moments
+def dequant_inputs(torch, g, shape):
+    b, l, d = shape
+    codes = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).cuda()
+    headers = torch.sort(torch.randn(b, 4, d, generator=g) * 8.0, dim=1).values.cuda()
+    return codes, headers
+
+
+def check_dequant(torch, name, codes, headers, quiet=False):
+    """Kernel against the plain version (1e-6) and, bit for bit, against the
+    host codec, which runs the map's operations in the kernel's order."""
+    from tf_kaldi_speaker_tpu_torch.kio import decode_cm_codes
     from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize, cm_dequantize_plain
+
+    got = cm_dequantize(codes, headers)
+    err = check_close(name + " vs plain", got, cm_dequantize_plain(codes, headers),
+                      quiet=quiet, **DEQ_TOL)
+    got, c, h = got.cpu().numpy(), codes.cpu().numpy(), headers.cpu().numpy()
+    for i in range(got.shape[0]):
+        if not np.array_equal(got[i], decode_cm_codes(c[i], h[i])):
+            raise AssertionError("%s: row %d differs from the host codec" % (name, i))
+    if not quiet:
+        print("%s: bit-equal to the host codec ok" % name)
+    return err
+
+
+def pooling_inputs(torch, g, shape, dtype, device):
+    """Post-ReLU activations with a large mean and ragged masks (one row
+    empty, one full), non-zero values on the masked frames."""
+    b, l, d = shape
+    x = torch.relu(torch.randn(b, l, d, generator=g, device=device) * 4.0 + 50.0)
+    lengths = torch.randint(1, l + 1, (b,), generator=g, device=device)
+    lengths[-1] = l
+    if b > 1:
+        lengths[0] = 0
+    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    return x.to(dtype).cuda(), mask.cuda()
+
+
+def check_pooling(torch, name, xt, mask, quiet=False):
+    from tf_kaldi_speaker_tpu_torch.models.pooling import floor_sqrt, masked_moments
     from tf_kaldi_speaker_tpu_torch.ops.pooling import (
         masked_stats_pooling, masked_stats_pooling_plain)
 
-    dev = torch.device("cuda")
+    tol = POOL_TOL[str(xt.dtype)[6:]]
+    got = masked_stats_pooling(xt, mask)
+    err = check_close(name + " vs plain", got, masked_stats_pooling_plain(xt, mask),
+                      quiet=quiet, **tol)
+    mean, var = masked_moments(xt.float(), mask)
+    check_close(name + " vs masked_moments", got,
+                torch.cat([mean, floor_sqrt(var)], 1).to(xt.dtype), quiet=quiet, **tol)
+    return err
+
+
+def copy_ms(torch, nbytes, flush):
+    """Time of a device copy that reads and writes nbytes in all: the
+    practical floor of a kernel that moves nbytes."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(torch, lambda: dst.copy_(src), flush)
+
+
+def measure_dequant(torch, g, shape, flush, full):
+    """Check cm_dequantize at shape and time it beside its bound and a copy
+    of its bytes; full: also the plain version."""
+    from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize, cm_dequantize_plain
+
+    codes, headers = dequant_inputs(torch, g, shape)
+    label = "cm_dequantize %s" % list(shape)
+    r = dict(max_abs_err=check_dequant(torch, label, codes, headers, quiet=not full))
+    r["ms"] = time_ms(torch, lambda: cm_dequantize(codes, headers), flush)
+    nbytes, flops = dequant_cost(*shape)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
+    r["copy_ms"] = copy_ms(torch, nbytes, flush)
+    if full:
+        r["plain_ms"] = time_ms(torch, lambda: cm_dequantize_plain(codes, headers), flush)
+    print("%s: kernel %.4f ms, bound %.4f ms (%s): %.1f%% of bound; copy of its %d bytes "
+          "%.4f ms%s" % (label, r["ms"], r["bound_ms"], r["bound_by"],
+                         100 * r["bound_ms"] / r["ms"], nbytes, r["copy_ms"],
+                         "; plain %.4f ms" % r["plain_ms"] if full else ""))
+    return r
+
+
+def measure_pooling(torch, g, shape, dtype, flush, full):
+    """Check masked_stats_pooling at shape and time it beside its bound;
+    full: also the plain version."""
+    from tf_kaldi_speaker_tpu_torch.ops.pooling import (
+        masked_stats_pooling, masked_stats_pooling_plain)
+
+    xt, mask = pooling_inputs(torch, g, shape, dtype, g.device)
+    label = "masked_stats_pooling %s %s" % (str(dtype)[6:], list(shape))
+    r = dict(max_abs_err=check_pooling(torch, label, xt, mask, quiet=not full))
+    r["ms"] = time_ms(torch, lambda: masked_stats_pooling(xt, mask), flush)
+    r["bound_ms"], r["bound_by"] = bound_ms(*pooling_cost(*shape, xt.element_size()))
+    if full:
+        r["plain_ms"] = time_ms(torch, lambda: masked_stats_pooling_plain(xt, mask), flush)
+    print("%s: kernel %.4f ms, bound %.4f ms (%s): %.1f%% of bound%s"
+          % (label, r["ms"], r["bound_ms"], r["bound_by"], 100 * r["bound_ms"] / r["ms"],
+             "; plain %.4f ms" % r["plain_ms"] if full else ""))
+    return r
+
+
+def check_kernels(torch, flush):
+    """Each kernel against its plain version at fixed shapes: dequant at a
+    device-pipe batch [32, 400, 30] and at a bandwidth-bound [256, 1200, 30];
+    pooling at the pooling layer of a 400-frame bucket [32, 386, 1500], in
+    bf16 (the flagship's compute dtype, the row's own numbers) and f32.
+    Returns each kernel's JSON row."""
     g = torch.Generator().manual_seed(0)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = {}
-
-    # CM dequantization at a batch of the device pipe: [32, 400, 30].
-    codes = torch.randint(0, 256, (32, 400, FEAT_DIM), generator=g,
-                          dtype=torch.uint8).to(dev)
-    headers = torch.sort(torch.randn(32, 4, FEAT_DIM, generator=g) * 8.0,
-                         dim=1).values.to(dev)
-    # torch's CUDA division by a scalar multiplies by the reciprocal, so
-    # the plain version may differ from the kernel's division by 1 ulp.
-    err = check_close("cm_dequantize [32, 400, 30] vs plain",
-                      cm_dequantize(codes, headers),
-                      cm_dequantize_plain(codes, headers), atol=1e-6, rtol=1e-6)
-    rows["cm_dequantize"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cm_dequantize(codes, headers), flush),
-        plain_ms=time_ms(torch, lambda: cm_dequantize_plain(codes, headers), flush))
-
-    # Statistics pooling at the pooling layer of a 400-frame bucket:
-    # [32, 386, 1500], post-ReLU with a large mean, ragged masks (one row
-    # empty, one full) and non-zero values on the masked frames.
-    b, l, d = 32, 386, 1500
-    x = torch.relu(torch.randn(b, l, d, generator=g) * 4.0 + 50.0).to(dev)
-    lengths = torch.randint(1, l + 1, (b,), generator=g)
-    lengths[0], lengths[1] = 0, l
-    mask = (torch.arange(l)[None, :] < lengths[:, None]).float().to(dev)
-    for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-5),
-                              # one bf16 ulp: both round an f32 result
-                              (torch.bfloat16, 0.0, 2.0 ** -7)):
-        xt = x.to(dtype)
-        name = "masked_stats_pooling %s [%d, %d, %d]" % (str(dtype)[6:], b, l, d)
-        got = masked_stats_pooling(xt, mask)
-        err = check_close(name + " vs plain", got,
-                          masked_stats_pooling_plain(xt, mask), atol, rtol)
-        mean, var = masked_moments(xt.float(), mask)
-        check_close(name + " vs masked_moments", got,
-                    torch.cat([mean, floor_sqrt(var)], 1).to(dtype), atol, rtol)
-        ms = time_ms(torch, lambda: masked_stats_pooling(xt, mask), flush)
-        plain_ms = time_ms(torch, lambda: masked_stats_pooling_plain(xt, mask), flush)
-        print("%s: kernel %.4f ms, plain %.4f ms" % (name, ms, plain_ms))
-        if dtype == torch.bfloat16:  # the flagship's compute dtype
-            rows["masked_stats_pooling"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    print("cm_dequantize [32, 400, 30]: kernel %.4f ms, plain %.4f ms"
-          % (rows["cm_dequantize"]["ms"], rows["cm_dequantize"]["plain_ms"]))
-    del flush
+    deq = measure_dequant(torch, g, (32, 400, FEAT_DIM), flush, True)
+    wide = measure_dequant(torch, g, (256, 1200, FEAT_DIM), flush, True)
+    rows["cm_dequantize"] = dict(shape=[32, 400, FEAT_DIM], **deq)
+    rows["cm_dequantize"].update(
+        {"wide_" + k: v for k, v in dict(shape=[256, 1200, FEAT_DIM], **wide).items()})
+    shape = (32, 386, 1500)
+    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+        r = measure_pooling(torch, torch.Generator().manual_seed(0), shape, dtype, flush, True)
+        row = rows.setdefault("masked_stats_pooling", {})
+        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=str(dtype)[6:],
+                                                 **r).items()})
+    for name in ("cm_dequantize", "masked_stats_pooling"):
+        row = rows[name]
+        row["max_abs_err"] = max(v for k, v in row.items() if k.endswith("max_abs_err"))
     return rows
+
+
+def replay_mix(torch, shapes, rows, flush):
+    """Every (shape, dtype) the main path launched, through kernel and plain
+    version on fresh inputs, and the mix's time: sum of count x median
+    kernel time, against sum of count x bound (and, for dequant, of count x
+    a copy of the same bytes)."""
+    g = torch.Generator().manual_seed(1)
+    gdev = torch.Generator(device="cuda").manual_seed(1)
+    for name, counter in shapes.items():
+        mix = dict(mix_ms=0.0, mix_bound_ms=0.0)
+        for (shape, dtype), count in sorted(counter.items()):
+            if name == "cm_dequantize":
+                r = measure_dequant(torch, g, shape, flush, False)
+            else:
+                r = measure_pooling(torch, gdev, shape, getattr(torch, dtype), flush, False)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
+            for key in ("ms", "bound_ms", "copy_ms"):
+                if r.get(key) is not None:
+                    mix["mix_" + key] = mix.get("mix_" + key, 0.0) + count * r[key]
+            print("  x%d launches on the main path; matches plain, max abs err %.3g"
+                  % (count, r["max_abs_err"]))
+        rows[name].update(mix, mix_shapes=len(counter), mix_launches=sum(counter.values()))
+        print("mix %s: %d launches over %d shapes, %.4f ms against a bound of %.4f ms "
+              "(%.1f%%)%s" % (
+                  name, sum(counter.values()), len(counter), mix["mix_ms"],
+                  mix["mix_bound_ms"], 100 * mix["mix_bound_ms"] / mix["mix_ms"],
+                  "; copies of the same bytes %.4f ms" % mix["mix_copy_ms"]
+                  if "mix_copy_ms" in mix else ""))
 
 
 def write_model_dir(torch, root):
@@ -184,7 +327,7 @@ def write_model_dir(torch, root):
 def write_ark(root):
     """64 utterances of 200-1200 frames whose C0 column is VAD-stable:
     voiced frames near +20 log-energy, silence near -20."""
-    from tf_kaldi_speaker_tpu.kio.ark import ArkScpWriter
+    from tf_kaldi_speaker_tpu_torch.kio import ArkScpWriter
 
     rng = np.random.RandomState(0)
     ark, scp = os.path.join(root, "feats.ark"), os.path.join(root, "feats.scp")
@@ -204,7 +347,7 @@ def cosine(a, b):
 
 
 def run_extraction(torch, model, scp, root):
-    from tf_kaldi_speaker_tpu.kio.ark import read_vec_flt_scp
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
     from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
     from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize
     from tf_kaldi_speaker_tpu_torch.ops.pooling import masked_stats_pooling
@@ -225,16 +368,19 @@ def run_extraction(torch, model, scp, root):
 
     extract("warmup", ["--device-pipe"])  # CUDA context, cuBLAS/cuDNN set-up
 
-    cm_dequantize.launches = 0
-    masked_stats_pooling.launches = 0
+    wrappers = {"cm_dequantize": cm_dequantize, "masked_stats_pooling": masked_stats_pooling}
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.shapes.clear()
     dev, dt_dev = extract("device_pipe", ["--device-pipe"])
-    launches = {"cm_dequantize": cm_dequantize.launches,
-                "masked_stats_pooling": masked_stats_pooling.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    shapes = {name: collections.Counter(fn.shapes) for name, fn in wrappers.items()}
     print("main path (cli.extract --device-pipe --cmvn --vad) launches: %s"
           % json.dumps(launches))
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError("the main path did not launch %s" % name)
+        if n <= 0 or sum(shapes[name].values()) != n:
+            raise AssertionError("the main path launched %s %d times at shapes %s"
+                                 % (name, n, dict(shapes[name])))
 
     host, dt_host = extract("host", [])
     if set(dev) != set(host) or len(dev) != N_UTTS:
@@ -251,13 +397,13 @@ def run_extraction(torch, model, scp, root):
     print("extraction, %d utterances of 200-1200 frames, whole cli.extract run: "
           "device pipe %.3f s = %.1f emb/s; host path %.3f s = %.1f emb/s"
           % (N_UTTS, dt_dev, N_UTTS / dt_dev, dt_host, N_UTTS / dt_host))
-    return launches, host
+    return launches, shapes, host
 
 
 def check_reference(torch, model, scp, host):
     """The card's bf16 embeddings against a float32 CPU forward of the same
     checkpoint (plain pooling) on four utterances."""
-    from tf_kaldi_speaker_tpu.kio.ark import read_mat_scp
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp
     from tf_kaldi_speaker_tpu_torch.cli.extract import apply_cmvn_vad
     from tf_kaldi_speaker_tpu_torch.convert import network_from_variables
     from tf_kaldi_speaker_tpu_torch.train.checkpoints import load_checkpoint
@@ -280,7 +426,7 @@ def check_reference(torch, model, scp, host):
 
 
 def run_server(model, scp):
-    from tf_kaldi_speaker_tpu.kio.ark import read_mat_scp
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp
     from tf_kaldi_speaker_tpu_torch.cli.extract import apply_cmvn_vad
     from tf_kaldi_speaker_tpu_torch.extract.server import EmbeddingServer, embed_remote
 
@@ -328,9 +474,6 @@ def run_server(model, scp):
 
 
 def main():
-    # The JAX package's __init__ imports jax whenever JAX_PLATFORMS is set;
-    # the port reads only its kio codec, and this run needs no jax.
-    os.environ.pop("JAX_PLATFORMS", None)
     import torch
 
     if not torch.cuda.is_available():
@@ -351,32 +494,31 @@ def main():
     print("kernels built from tf_kaldi_speaker_tpu_torch/csrc in %.2f s -> %s"
           % (time.perf_counter() - t0, _build.library_path()))
     for line in log.splitlines():
-        if "registers" in line:
+        if any(w in line for w in ("Compiling entry", "stack frame", "registers")):
             print("  " + line.strip())
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("torch.backends.cudnn.allow_tf32=%s torch.backends.cuda.matmul.allow_tf32=%s"
           % (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
-    rows = check_kernels(torch)
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = check_kernels(torch, flush)
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     os.makedirs(WORK_DIR)
     model = write_model_dir(torch, os.path.join(WORK_DIR, "model"))
     scp = write_ark(WORK_DIR)
-    launches, host = run_extraction(torch, model, scp, WORK_DIR)
+    launches, shapes, host = run_extraction(torch, model, scp, WORK_DIR)
     check_reference(torch, model, scp, host)
+    replay_mix(torch, shapes, rows, flush)
+    del flush
     run_server(model, scp)
 
-    sources = {
-        "cm_dequantize": ("tf_kaldi_speaker_tpu_torch/csrc/cm_dequant.cu",
-                          "tf_kaldi_speaker_tpu/ops/cm_dequant_pallas.py:28"),
-        "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling.cu",
-                                 "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:35"),
-    }
+    # no single PyTorch call computes either function: library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **rows[name])
-               for name, (src, rep) in sources.items()]
+                    launches=launches[name], library_ms=None,
+                    **{k: v for k, v in rows[name].items() if v is not None})
+               for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

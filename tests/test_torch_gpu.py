@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from tf_kaldi_speaker_tpu.kio.ark import ArkScpWriter, read_codes_scp
 from tf_kaldi_speaker_tpu_torch.convert import variables_from_network
 from tf_kaldi_speaker_tpu_torch.extract.device_pipe import DevicePipeExtractor
+from tf_kaldi_speaker_tpu_torch.kio import ArkScpWriter, decode_cm_codes, read_codes_scp
 from tf_kaldi_speaker_tpu_torch.models.tdnn import EntireNetwork
+from tf_kaldi_speaker_tpu_torch.ops import _build
 from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize, cm_dequantize_plain
 from tf_kaldi_speaker_tpu_torch.ops.pooling import (
     masked_stats_pooling,
@@ -54,22 +55,48 @@ def _ragged(seed, b, l, d, mean=50.0):
     return x, mask
 
 
-@pytest.mark.parametrize("shape", [(4, 400, 30), (1, 7, 20), (3, 1, 257)])
-def test_cm_dequantize_kernel(cuda, shape):
+def _misaligned(t, cuda):
+    """t on the card at an address one element past an aligned one, so the
+    kernels take their scalar paths; contiguous all the same."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# L*D % 4 == 0 and aligned codes take the 4-byte loads and 16-byte stores:
+# (4, 400, 30), (1, 7, 20), (2, 16, 30), (32, 400, 30); the rest, and every
+# misaligned case, the scalar path.
+@pytest.mark.parametrize("shape", [(4, 400, 30), (1, 7, 20), (3, 1, 257), (3, 7, 30),
+                                   (1, 1, 257), (2, 16, 30), (32, 400, 30)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cm_dequantize_kernel(cuda, shape, aligned):
+    """Bit-equal to the host codec (numpy: each operation rounded to float32
+    in the map's order, no FMA); against the plain version within the 1-ulp
+    difference of torch's division by a scalar on the card."""
     b, l, d = shape
     g = torch.Generator().manual_seed(0)
     codes = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    codes[0, 0, :3] = torch.tensor([64, 192, 255], dtype=torch.uint8)  # segment ends
     headers = torch.sort(torch.randn(b, 4, d, generator=g) * 3.0, dim=1).values
+    codes_dev = codes.to(cuda) if aligned else _misaligned(codes, cuda)
     n = cm_dequantize.launches
-    got = cm_dequantize(codes.to(cuda), headers.to(cuda))
+    got = cm_dequantize(codes_dev, headers.to(cuda))
     torch.cuda.synchronize()
     assert cm_dequantize.launches == n + 1 and got.dtype == torch.float32
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               cm_dequantize_plain(codes, headers).numpy(), **DEQ_TOL)
+    got = got.cpu().numpy()
+    for i in range(b):
+        np.testing.assert_array_equal(
+            got[i], decode_cm_codes(codes[i].numpy(), headers[i].numpy()))
+    np.testing.assert_allclose(
+        got, cm_dequantize_plain(codes.to(cuda), headers.to(cuda)).cpu().numpy(), **DEQ_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(8, 200, 1500), (3, 50, 20), (2, 0, 33)])
+@pytest.mark.parametrize("shape", [(8, 200, 1500), (3, 50, 20), (2, 0, 33),
+                                   (1, 434, 1500), (8, 434, 1500), (32, 386, 1500),
+                                   (4, 90, 1501), (5, 33, 257), (2, 2500, 300)])
 def test_stats_pooling_kernel(cuda, dtype, shape):
     dt = getattr(torch, dtype)
     x, mask = _ragged(1, *shape)
@@ -81,6 +108,76 @@ def test_stats_pooling_kernel(cuda, dtype, shape):
     want = masked_stats_pooling_plain(x, mask)
     tol = POOL_TOL if dtype == "float32" else BF16_TOL
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), **tol)
+
+
+def _hard_masks(seed, b, l, d):
+    """Rows: no valid frame; a fractional mask; valid frames from frame 300
+    on (the first valid frame is not in the first block of frames); the
+    rest ragged."""
+    x, mask = _ragged(seed, b, l, d)
+    g = torch.Generator().manual_seed(seed + 1)
+    mask[0] = 0.0
+    mask[1] = torch.rand(l, generator=g)
+    mask[2] = (torch.arange(l) >= 300).float()
+    return x, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d, aligned", [(1500, True), (1500, False), (1501, True)])
+def test_stats_pooling_kernel_hard_masks(cuda, dtype, d, aligned):
+    dt = getattr(torch, dtype)
+    x, mask = _hard_masks(5, 4, 434, d)
+    x = x.to(dt)
+    xd = x.to(cuda) if aligned else _misaligned(x, cuda)
+    got = masked_stats_pooling(xd, mask.to(cuda))
+    want = masked_stats_pooling_plain(x, mask)
+    tol = POOL_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), **tol)
+    assert float(got[0, d:].float().min()) == pytest.approx(1e-6, rel=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stats_pooling_kernel_every_split_count(cuda, dtype):
+    """Each cluster size from 1 to 8, forced through the tests' entry point
+    (at 2000 frames no count is cut), gives the plain version's result; 0
+    and 9 are refused."""
+    dt = getattr(torch, dtype)
+    b, l, d = 3, 2000, 260
+    x, mask = _hard_masks(6, b, l, d)
+    x = x.to(dt)
+    want = masked_stats_pooling_plain(x, mask).float().numpy()
+    tol = POOL_TOL if dtype == "float32" else BF16_TOL
+    xd, md = x.to(cuda), mask.to(cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for splits in range(10):
+        out = torch.empty(b, 2 * d, dtype=dt, device=cuda)
+        err = _build.load().tfks_stats_pooling_splits(
+            int(dt == torch.bfloat16), xd.data_ptr(), md.data_ptr(), out.data_ptr(),
+            b, l, d, splits, stream)
+        if splits in (0, 9):
+            assert err != 0
+            continue
+        assert err == 0, splits
+        np.testing.assert_allclose(out.float().cpu().numpy(), want, err_msg=str(splits), **tol)
+
+
+def test_shape_counters_record_launches(cuda):
+    cm_dequantize.shapes.clear()
+    masked_stats_pooling.shapes.clear()
+    for b, l in ((2, 16), (2, 16), (4, 24)):
+        cm_dequantize(torch.zeros(b, l, 30, dtype=torch.uint8, device=cuda),
+                      torch.zeros(b, 4, 30, device=cuda))
+        masked_stats_pooling(torch.zeros(b, l, 40, dtype=torch.bfloat16, device=cuda),
+                             torch.ones(b, l, device=cuda))
+    masked_stats_pooling(torch.zeros(1, 8, 40, device=cuda), torch.ones(1, 8, device=cuda))
+    assert dict(cm_dequantize.shapes) == {((2, 16, 30), "uint8"): 2,
+                                          ((4, 24, 30), "uint8"): 1}
+    assert dict(masked_stats_pooling.shapes) == {((2, 16, 40), "bfloat16"): 2,
+                                                 ((4, 24, 40), "bfloat16"): 1,
+                                                 ((1, 8, 40), "float32"): 1}
+    # CPU tensors take the plain versions and are not counted
+    masked_stats_pooling(torch.zeros(1, 8, 40), torch.ones(1, 8))
+    assert sum(masked_stats_pooling.shapes.values()) == 4
 
 
 def test_stats_pooling_grad_on_card(cuda):

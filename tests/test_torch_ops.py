@@ -107,9 +107,11 @@ def test_cpu_path_launches_nothing():
     codes, headers = _codes_headers(5)
     x, mask = _ragged(5)
     n_deq, n_pool = cm_dequantize.launches, masked_stats_pooling.launches
+    shapes = dict(cm_dequantize.shapes), dict(masked_stats_pooling.shapes)
     cm_dequantize(torch.from_numpy(codes), torch.from_numpy(headers))
     masked_stats_pooling(torch.from_numpy(x), torch.from_numpy(mask))
     assert (cm_dequantize.launches, masked_stats_pooling.launches) == (n_deq, n_pool)
+    assert (dict(cm_dequantize.shapes), dict(masked_stats_pooling.shapes)) == shapes
 
 
 @pytest.mark.parametrize("device", ["meta", "split"])

@@ -2,9 +2,11 @@
 
 The JAX package ``tf_kaldi_speaker_tpu`` stays the reference; this package
 mirrors its module layout so each counterpart is found at the same path. It
-imports ``torch`` and never the JAX libraries; of the JAX package it imports only
-the numpy Kaldi codec ``tf_kaldi_speaker_tpu.kio``.
+imports ``torch`` and numpy, never the JAX libraries and nothing of the JAX
+package: what it needs of the numpy-only modules there (the Kaldi codec,
+the config reader) it carries itself.
 
+- ``kio``      Kaldi ark/scp codec (float matrices and vectors, CM codes)
 - ``models``   TDNN x-vector network and statistics pooling (eval mode)
 - ``ops``      the CUDA kernels (CM dequantization, fused statistics
                pooling; sources in ``csrc/``) and batched CMVN / VAD

@@ -21,11 +21,9 @@ import sys
 import numpy as np
 import torch
 
-from tf_kaldi_speaker_tpu.kio import read_mat_rspec
-from tf_kaldi_speaker_tpu.kio.ark import ArkScpWriter, decode_cm_codes, read_codes_scp
-
 from ..extract.device_pipe import DevicePipeExtractor
 from ..extract.extractor import Extractor
+from ..kio import ArkScpWriter, decode_cm_codes, read_codes_scp, read_mat_rspec
 from ..ops.cmvn import sliding_cmvn_masked
 from ..ops.vad import compute_vad_energy_masked
 

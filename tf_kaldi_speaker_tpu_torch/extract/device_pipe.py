@@ -75,7 +75,7 @@ class DevicePipeExtractor(Extractor):
         self, stream: Iterable[Tuple[str, np.ndarray, np.ndarray]]
     ) -> Iterator[Tuple[str, np.ndarray]]:
         """Yield (key, embedding) for (key, codes [T, D] uint8, headers
-        [4, D] float32) triples (see kio.ark.read_codes_scp).
+        [4, D] float32) triples (see kio.read_codes_scp).
 
         Utterances whose length after the pipe is below ``min_chunk_size``
         are skipped with a log line; utterances longer than ``chunk_size``

@@ -1,0 +1,41 @@
+"""Kaldi ark/scp I/O for the port, numpy only: float matrices (compressed
+included), raw compressed-matrix codes for the device pipe, float vectors,
+and r/w-specifiers. Counterpart of ``tf_kaldi_speaker_tpu/kio`` for the
+formats the port reads and writes."""
+
+from .ark import (
+    ArkScpWriter,
+    compress_matrix,
+    decode_cm_codes,
+    read_codes_scp,
+    read_mat,
+    read_mat_ark,
+    read_mat_rspec,
+    read_mat_scp,
+    read_vec_flt,
+    read_vec_flt_ark,
+    read_vec_flt_scp,
+    write_mat,
+    write_vec_flt,
+)
+from .rspecifier import SubprocessFailed, open_or_fd, popen, read_key
+
+__all__ = [
+    "ArkScpWriter",
+    "SubprocessFailed",
+    "compress_matrix",
+    "decode_cm_codes",
+    "open_or_fd",
+    "popen",
+    "read_codes_scp",
+    "read_key",
+    "read_mat",
+    "read_mat_ark",
+    "read_mat_rspec",
+    "read_mat_scp",
+    "read_vec_flt",
+    "read_vec_flt_ark",
+    "read_vec_flt_scp",
+    "write_mat",
+    "write_vec_flt",
+]

@@ -30,11 +30,14 @@ NVCC_FLAGS = (
 )
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# name -> argtypes; pointers, then B, L, D, then the stream.
+# name -> argtypes; pointers, then B, L, D, then the stream. The tests'
+# tfks_stats_pooling_splits takes a bf16 flag first and a frame-split
+# count before the stream.
 _ENTRY_POINTS = {
     "tfks_cm_dequantize": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_bf16": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "tfks_stats_pooling_splits": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
 }
 
 _lock = threading.Lock()

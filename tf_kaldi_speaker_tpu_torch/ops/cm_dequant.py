@@ -11,6 +11,8 @@ p75, p100 per utterance column) -> [B, L, D] float32.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import _build
@@ -49,6 +51,9 @@ def cm_dequantize(codes: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
                          % (b, d, tuple(headers.shape)))
     if not (codes.is_contiguous() and headers.is_contiguous()):
         raise ValueError("cm_dequantize: inputs must be contiguous")
+    if b > 65535 or l * d >= 2 ** 31 - 2 ** 12:
+        raise ValueError("cm_dequantize: at most 65535 utterances of under "
+                         "2^31 - 2^12 codes each, got %s" % (tuple(codes.shape),))
     out = torch.empty((b, l, d), dtype=torch.float32, device=codes.device)
     if out.numel() == 0:
         return out
@@ -59,7 +64,11 @@ def cm_dequantize(codes: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
             codes.data_ptr(), headers.data_ptr(), out.data_ptr(), b, l, d, stream)
     _build.check(err, "cm_dequantize")
     cm_dequantize.launches += 1
+    cm_dequantize.shapes[(b, l, d), "uint8"] += 1
     return out
 
 
+# Kernel launches, and launches by ((B, L, D), codes dtype name), counted
+# where the kernel is launched; chip_smoke.py reads both after the main path.
 cm_dequantize.launches = 0
+cm_dequantize.shapes = collections.Counter()

@@ -9,6 +9,8 @@ custom VJP, in plain PyTorch as it is plain jnp there.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..models.layers import VAR2STD_EPSILON
@@ -50,6 +52,8 @@ def _stats_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                          % (b, l, tuple(mask.shape)))
     if not (x.is_contiguous() and mask.is_contiguous()):
         raise ValueError("masked_stats_pooling: inputs must be contiguous")
+    if b > 65535:
+        raise ValueError("masked_stats_pooling: at most 65535 rows, got %d" % b)
     out = torch.empty((b, 2 * d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -60,6 +64,7 @@ def _stats_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), mask.data_ptr(), out.data_ptr(), b, l, d, stream)
     _build.check(err, "masked_stats_pooling")
     masked_stats_pooling.launches += 1
+    masked_stats_pooling.shapes[(b, l, d), str(x.dtype)[6:]] += 1
     return out
 
 
@@ -98,4 +103,7 @@ def masked_stats_pooling(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return MaskedStatsPooling.apply(x, mask.to(torch.float32).contiguous())
 
 
+# Kernel launches, and launches by ((B, L, D), dtype name), counted where
+# the kernel is launched; chip_smoke.py reads both after the main path.
 masked_stats_pooling.launches = 0
+masked_stats_pooling.shapes = collections.Counter()

@@ -23,17 +23,29 @@ Phases, each of which raises on failure:
    path through kernel and plain version, and time the mix against its
    bound;
 8. serve 16 requests from 8 client threads through ``EmbeddingServer``
-   and hold each reply against ``embed_utterance``.
+   and hold each reply against ``embed_utterance``;
+9. train: ``cli.train`` at flagship width from the device pool (bf16, 2
+   epochs of 16 steps in groups of 8, validation after each) on a
+   synthetic compressed corpus of 96 speakers (the second main path: the
+   dequant kernel, the pooling forward and the pooling backward must each
+   launch), with every logged loss finite; one ``torch.profiler`` pass over
+   a group of 8 pool steps (device busy and idle share, top kernels);
+10. replay every (shape, dtype) each kernel was launched at on the
+   training path, as in 7;
+11. hold one card bf16 train step against the port's float32 CPU step from
+   the trained state on one fixed pool batch;
+12. extract with ``cli.extract --device-pipe`` from the trained model dir.
 
 The line before the last is a JSON object with each kernel's route,
-source, launch count on the main path, error against its plain version,
-times and bounds at the fixed shapes and over the main path's mix; the
-last line is ``{"ok": true, "device": {...}}``.
+source, launch count on the main paths, error against its plain version,
+times and bounds at the fixed shapes and over each path's mix; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import collections
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -70,6 +82,20 @@ FLAGSHIP = dict(
 FEAT_DIM = 30
 N_UTTS = 64
 WORK_DIR = os.path.join("build", "chip_smoke")
+# cli.train's config: the flagship from the device pool, the voxceleb
+# recipe's learning rate (recipes/voxceleb/v1/nnet_conf), cut to 2 epochs of
+# 16 steps (2 groups of 8 sampled at one bucket length each).
+TRAIN = dict(
+    FLAGSHIP,
+    device_pool=True,
+    num_steps_per_epoch=16,
+    steps_per_dispatch=8,
+    num_epochs=2,
+    learning_rate=0.01,
+    valid_max_iterations=2,
+    show_training_progress=8,
+    check_numerics=True,
+)
 
 
 # Peaks of one H100 SXM for the bounds (from NVIDIA's data sheet): HBM3
@@ -82,12 +108,18 @@ SOURCES = {
                       "tf_kaldi_speaker_tpu/ops/cm_dequant_pallas.py:28"),
     "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling.cu",
                              "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:35"),
+    "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling_bwd.cu",
+                                      "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:100"),
 }
 # kernel vs plain: dequant 1 ulp (torch's CUDA division by a scalar
 # multiplies by the reciprocal); pooling f32 one-pass shifted sums against
 # two passes; bf16 one ulp (both round an f32 result)
 DEQ_TOL = dict(atol=1e-6, rtol=1e-6)
 POOL_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=0.0, rtol=2.0 ** -7)}
+# backward vs plain (both float32 inside, rounded once): float32 to
+# reassociation; bf16 one ulp, and the float32 noise where the mean and
+# deviation terms cancel
+BWD_TOL = {"float32": dict(atol=1e-6, rtol=1e-5), "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
 
 
 def bound_ms(nbytes, flops):
@@ -107,6 +139,13 @@ def pooling_cost(b, l, d, esize):
     """Bytes (x and the f32 mask read, [b, 2d] written) and operations (a
     subtract, a multiply and two multiply-adds per element) of the pooling."""
     return b * l * d * esize + b * l * 4 + 2 * b * d * esize, 6 * b * l * d
+
+
+def pooling_bwd_cost(b, l, d, esize):
+    """Bytes (x, the f32 mask, out and g read, gx written) and operations (a
+    subtract, a multiply-add and a multiply per element) of the pooling
+    backward."""
+    return 2 * b * l * d * esize + b * l * 4 + 2 * 2 * b * d * esize, 4 * b * l * d
 
 
 def time_ms(torch, fn, flush, runs=50, warmup=5):
@@ -243,6 +282,33 @@ def measure_pooling(torch, g, shape, dtype, flush, full):
     return r
 
 
+def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
+    """Check the pooling backward at shape (x as in measure_pooling, out
+    from the plain forward, g normal) and time it beside its bound; full:
+    also the plain version."""
+    from tf_kaldi_speaker_tpu_torch.ops.pooling import (
+        masked_stats_pooling_backward, masked_stats_pooling_backward_plain,
+        masked_stats_pooling_plain)
+
+    xt, mask = pooling_inputs(torch, g, shape, dtype, g.device)
+    out = masked_stats_pooling_plain(xt, mask)
+    gr = torch.randn(out.shape, generator=g, device=g.device).to(dtype).cuda()
+    label = "masked_stats_pooling_backward %s %s" % (str(dtype)[6:], list(shape))
+    got = masked_stats_pooling_backward(xt, mask, out, gr)
+    r = dict(max_abs_err=check_close(
+        label + " vs plain", got, masked_stats_pooling_backward_plain(xt, mask, out, gr),
+        quiet=not full, **BWD_TOL[str(dtype)[6:]]))
+    r["ms"] = time_ms(torch, lambda: masked_stats_pooling_backward(xt, mask, out, gr), flush)
+    r["bound_ms"], r["bound_by"] = bound_ms(*pooling_bwd_cost(*shape, xt.element_size()))
+    if full:
+        r["plain_ms"] = time_ms(
+            torch, lambda: masked_stats_pooling_backward_plain(xt, mask, out, gr), flush)
+    print("%s: kernel %.4f ms, bound %.4f ms (%s): %.1f%% of bound%s"
+          % (label, r["ms"], r["bound_ms"], r["bound_by"], 100 * r["bound_ms"] / r["ms"],
+             "; plain %.4f ms" % r["plain_ms"] if full else ""))
+    return r
+
+
 def check_kernels(torch, flush):
     """Each kernel against its plain version at fixed shapes: dequant at a
     device-pipe batch [32, 400, 30] and at a bandwidth-bound [256, 1200, 30];
@@ -262,39 +328,50 @@ def check_kernels(torch, flush):
         row = rows.setdefault("masked_stats_pooling", {})
         row.update({key + k: v for k, v in dict(shape=list(shape), dtype=str(dtype)[6:],
                                                  **r).items()})
-    for name in ("cm_dequantize", "masked_stats_pooling"):
+    # the backward at the train step's middle bucket (L = 300 frames in)
+    shape = (64, 286, 1500)
+    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+        gdev = torch.Generator(device="cuda").manual_seed(0)
+        r = measure_pooling_bwd(torch, gdev, shape, dtype, flush, True)
+        row = rows.setdefault("masked_stats_pooling_backward", {})
+        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=str(dtype)[6:],
+                                                 **r).items()})
+    for name in SOURCES:
         row = rows[name]
         row["max_abs_err"] = max(v for k, v in row.items() if k.endswith("max_abs_err"))
     return rows
 
 
-def replay_mix(torch, shapes, rows, flush):
-    """Every (shape, dtype) the main path launched, through kernel and plain
+def replay_mix(torch, shapes, rows, flush, prefix="mix_"):
+    """Every (shape, dtype) a main path launched, through kernel and plain
     version on fresh inputs, and the mix's time: sum of count x median
     kernel time, against sum of count x bound (and, for dequant, of count x
-    a copy of the same bytes)."""
+    a copy of the same bytes); written to each row under ``prefix``."""
     g = torch.Generator().manual_seed(1)
     gdev = torch.Generator(device="cuda").manual_seed(1)
     for name, counter in shapes.items():
-        mix = dict(mix_ms=0.0, mix_bound_ms=0.0)
+        mix = {prefix + "ms": 0.0, prefix + "bound_ms": 0.0}
         for (shape, dtype), count in sorted(counter.items()):
             if name == "cm_dequantize":
                 r = measure_dequant(torch, g, shape, flush, False)
-            else:
+            elif name == "masked_stats_pooling":
                 r = measure_pooling(torch, gdev, shape, getattr(torch, dtype), flush, False)
+            else:
+                r = measure_pooling_bwd(torch, gdev, shape, getattr(torch, dtype), flush, False)
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
             for key in ("ms", "bound_ms", "copy_ms"):
                 if r.get(key) is not None:
-                    mix["mix_" + key] = mix.get("mix_" + key, 0.0) + count * r[key]
-            print("  x%d launches on the main path; matches plain, max abs err %.3g"
+                    mix[prefix + key] = mix.get(prefix + key, 0.0) + count * r[key]
+            print("  x%d launches on the path; matches plain, max abs err %.3g"
                   % (count, r["max_abs_err"]))
-        rows[name].update(mix, mix_shapes=len(counter), mix_launches=sum(counter.values()))
-        print("mix %s: %d launches over %d shapes, %.4f ms against a bound of %.4f ms "
+        rows[name].update(mix, **{prefix + "shapes": len(counter),
+                                  prefix + "launches": sum(counter.values())})
+        print("%s%s: %d launches over %d shapes, %.4f ms against a bound of %.4f ms "
               "(%.1f%%)%s" % (
-                  name, sum(counter.values()), len(counter), mix["mix_ms"],
-                  mix["mix_bound_ms"], 100 * mix["mix_bound_ms"] / mix["mix_ms"],
-                  "; copies of the same bytes %.4f ms" % mix["mix_copy_ms"]
-                  if "mix_copy_ms" in mix else ""))
+                  prefix, name, sum(counter.values()), len(counter), mix[prefix + "ms"],
+                  mix[prefix + "bound_ms"], 100 * mix[prefix + "bound_ms"] / mix[prefix + "ms"],
+                  "; copies of the same bytes %.4f ms" % mix[prefix + "copy_ms"]
+                  if prefix + "copy_ms" in mix else ""))
 
 
 def write_model_dir(torch, root):
@@ -473,6 +550,231 @@ def run_server(model, scp):
           % (wall, 1e3 * float(np.median(latency)), worst))
 
 
+def write_corpus(root):
+    """Compressed synthetic train and valid dirs, 30-dim: 96 speakers x 4
+    utterances of 450-900 frames, and 16 other speakers x 2. Speaker means
+    and per-utterance channel offsets of equal scale keep the speakers
+    overlapping, so the loss does not collapse within the run."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    kw = dict(dim=FEAT_DIM, min_len=450, max_len=900, spk_scale=1.0, chan_scale=1.0)
+    train = make_fake_data_dir(os.path.join(root, "train"), num_speakers=96,
+                               utts_per_speaker=4, seed=0, **kw)
+    valid = make_fake_data_dir(os.path.join(root, "valid"), num_speakers=16,
+                               utts_per_speaker=2, seed=1, spk_offset=96, **kw)
+    return train, valid
+
+
+def run_training(torch, root, train, valid):
+    """cli.train from the device pool (the training path). Returns the
+    launches and shapes of the three kernels on this path, and the model
+    dir. The end of each group of 8 steps is timed after a synchronize (one
+    per group, which the trainer does not do itself), as is each epoch's
+    start."""
+    import logging
+
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+    from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize
+    from tf_kaldi_speaker_tpu_torch.ops.pooling import (
+        masked_stats_pooling, masked_stats_pooling_backward)
+    from tf_kaldi_speaker_tpu_torch.train import trainer as trainer_mod
+
+    model = os.path.join(root, "trained")
+    cfg_path = os.path.join(root, "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(TRAIN, f)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    trainer_log = logging.getLogger("tfks_torch.trainer")
+    marks = []  # (kind, step, time)
+    Trainer = trainer_mod.Trainer
+    train_fn, post_group = Trainer.train, Trainer._post_group
+
+    def mark(self, kind):
+        torch.cuda.synchronize()
+        marks.append((kind, self.step, time.perf_counter()))
+
+    def timed_train(self, *args, **kw):
+        mark(self, "start")
+        return train_fn(self, *args, **kw)
+
+    def timed_post_group(self, *args, **kw):
+        mark(self, "group")
+        return post_group(self, *args, **kw)
+
+    wrappers = {"cm_dequantize": cm_dequantize, "masked_stats_pooling": masked_stats_pooling,
+                "masked_stats_pooling_backward": masked_stats_pooling_backward}
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    Trainer.train, Trainer._post_group = timed_train, timed_post_group
+    trainer_log.addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        rc = cli_train.main(["--config", cfg_path, "--device", "cuda", train["data"],
+                             train["spklist"], valid["data"], valid["spklist"], model])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.train, Trainer._post_group = train_fn, post_group
+        trainer_log.removeHandler(handler)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    shapes = {name: collections.Counter(fn.shapes) for name, fn in wrappers.items()}
+    if rc != 0:
+        raise RuntimeError("cli.train exited %d" % rc)
+    print("training path (cli.train, device pool, bf16) launches: %s" % json.dumps(launches))
+    for name, n in launches.items():
+        if n <= 0 or sum(shapes[name].values()) != n:
+            raise AssertionError("the training path launched %s %d times at shapes %s"
+                                 % (name, n, dict(shapes[name])))
+    losses = [float(m.split("loss ")[1].split()[0]) for m in logged if " loss " in m]
+    steps = TRAIN["num_epochs"] * TRAIN["num_steps_per_epoch"]
+    if len(losses) != steps // TRAIN["steps_per_dispatch"] or not np.all(np.isfinite(losses)):
+        raise AssertionError("logged losses %s (expected %d finite)" % (
+            losses, steps // TRAIN["steps_per_dispatch"]))
+    with open(os.path.join(model, "nnet", "valid_loss")) as f:
+        valid_lines = f.read().split()
+    print("logged group losses %s; valid_loss file %s" % (losses, valid_lines))
+    # the second epoch: its start mark, then the end of each of its groups
+    k, n = TRAIN["steps_per_dispatch"], TRAIN["num_steps_per_epoch"]
+    epoch2 = [t for kind, step, t in marks
+              if (kind, step) == ("start", n) or (kind == "group" and step > n)]
+    groups = np.diff(epoch2)
+    step_ms = 1e3 * float(np.median(groups)) / k
+    rate = n * TRAIN["num_speakers_per_batch"] / (epoch2[-1] - epoch2[0])
+    print("train step, second epoch (%d groups of %d steps, bf16, batch %d x 200-400 frames): "
+          "median %.3f ms per step (group times %s s), %.1f chunks/s; whole cli.train run "
+          "%.2f s" % (len(groups), k, TRAIN["num_speakers_per_batch"], step_ms,
+                      ["%.4f" % g for g in groups], rate, wall))
+    return launches, shapes, model, dict(step_ms=step_ms, chunks_per_s=rate)
+
+
+def _trainer_at(torch, model, device, compute_dtype):
+    """A Trainer in ``model``'s state (its last checkpoint)."""
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+    from tf_kaldi_speaker_tpu_torch.utils.params import Params
+
+    nnet = os.path.join(model, "nnet")
+    params = Params(os.path.join(nnet, "config.json"))
+    params.dict["compute_dtype"] = compute_dtype
+    with open(os.path.join(nnet, "feature_dim")) as f:
+        dim = int(f.read())
+    with open(os.path.join(nnet, "num_speakers")) as f:
+        num_speakers = int(f.read())
+    t = Trainer(params, nnet, dim=dim, num_speakers=num_speakers, device=device)
+    t.build("train")
+    t.load()
+    return t
+
+
+def _pool_group(torch, train, device, group, length, seed):
+    from tf_kaldi_speaker_tpu_torch.data.device_pool import DevicePool, gather_chunks
+
+    pool = DevicePool(train["data"], train["spklist"], device=device, seed=seed)
+    pool.stage()
+    starts, utts, labels = (torch.from_numpy(a).to(device) for a in pool.sample_group(
+        random.Random(seed), group, TRAIN["num_speakers_per_batch"], 1, length))
+    batches = [gather_chunks(pool.frames, pool.headers, starts[i], utts[i], length)
+               + (labels[i],) for i in range(group)]
+    pool.close()
+    return batches
+
+
+def profile_train_group(torch, model, train):
+    """One torch.profiler pass over a group of 8 bf16 pool steps (after one
+    group of warm-up): the device's busy and idle share of the host's wall
+    time, and the kernels that take most of the device time."""
+    t = _trainer_at(torch, model, "cuda", "bfloat16")
+    batches = _pool_group(torch, train, "cuda", TRAIN["steps_per_dispatch"], 296, 3)
+    for codes, hdr, lab in batches:
+        t.train_step_raw(codes, hdr, lab, TRAIN["learning_rate"])
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for codes, hdr, lab in batches:
+            t.train_step_raw(codes, hdr, lab, TRAIN["learning_rate"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("profile: no device events in the trace; device idle share not measured")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    busy_s = busy * 1e-6
+    print("profile, 8 bf16 train steps [64, 296, 30] from the pool under torch.profiler: "
+          "wall %.4f s, device busy %.4f s, device idle %.1f%%, %d device events"
+          % (wall, busy_s, 100 * (1 - busy_s / wall), len(kernels)))
+    for name, us in by_name.most_common(12):
+        print("  %5.1f%%  %8.3f ms  %s" % (100 * us / busy, us * 1e-3, name[:110]))
+    return dict(profile_wall_s=wall, profile_busy_s=busy_s, device_idle=1 - busy_s / wall)
+
+
+def check_step_against_cpu(torch, model, train):
+    """One bf16 train step on the card against the port's float32 step on
+    the CPU, both from the trained state, on one fixed pool batch: loss
+    within 2e-2, and every updated parameter at cosine > 0.999 of the CPU's,
+    except the biases that a BatchNorm follows (their gradient is zero in
+    exact arithmetic; both sides hold rounding noise there)."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    (codes, hdr, lab), = _pool_group(torch, train, "cpu", 1, 296, 5)
+    gpu = _trainer_at(torch, model, "cuda", "bfloat16")
+    cpu = _trainer_at(torch, model, "cpu", "float32")
+    before = flatten(variables_of(cpu.network_model))
+    lr = TRAIN["learning_rate"]
+    loss_gpu = float(gpu.train_step_raw(codes.cuda(), hdr.cuda(), lab.cuda(), lr)["loss"])
+    loss_cpu = float(cpu.train_step_raw(codes, hdr, lab, lr)["loss"])
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if not (np.isfinite(loss_gpu) and rel < 2e-2):
+        raise AssertionError("card bf16 loss %.6f vs CPU float32 %.6f (rel %.3g >= 2e-2)"
+                             % (loss_gpu, loss_cpu, rel))
+    got = flatten(variables_of(gpu.network_model))
+    want = flatten(variables_of(cpu.network_model))
+    worst, worst_upd = 1.0, 1.0
+    for path, w in want.items():
+        if path[0] != "params" or (path[-1] == "bias" and path[-2].endswith(("_conv", "_dense"))):
+            continue
+        g, w, b = (t.double().ravel() for t in (got[path], w, before[path]))
+        cos = float(g @ w / (g.norm() * w.norm()))
+        if not cos > 0.999:
+            raise AssertionError("%s: card vs CPU cosine %.6f <= 0.999" % ("/".join(path), cos))
+        worst = min(worst, cos)
+        du, dw = g - b, w - b
+        worst_upd = min(worst_upd, float(du @ dw / (du.norm() * dw.norm())))
+    print("one train step, card bf16 vs CPU float32 from the trained state: loss %.6f vs "
+          "%.6f (rel %.2e < 2e-2); updated parameters min cosine %.6f (> 0.999); the "
+          "updates themselves min cosine %.4f" % (loss_gpu, loss_cpu, rel, worst, worst_upd))
+
+
+def extract_trained(model, scp, root):
+    from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
+
+    out = os.path.join(root, "trained_xvector")
+    rc = cli_extract.main(["--device-pipe", "--batch-size", "32", "--device", "cuda", model,
+                           "scp:" + scp, "ark,scp:%s.ark,%s.scp" % (out, out)])
+    if rc != 0:
+        raise RuntimeError("cli.extract from the trained model exited %d" % rc)
+    emb = dict(read_vec_flt_scp(out + ".scp"))
+    if len(emb) != N_UTTS or any(e.shape != (512,) or not np.isfinite(e).all()
+                                 for e in emb.values()):
+        raise AssertionError("trained model: %d embeddings, not %d finite 512-d ones"
+                             % (len(emb), N_UTTS))
+    print("cli.extract --device-pipe from the trained model dir: %d finite 512-d embeddings ok"
+          % len(emb))
+
+
 def main():
     import torch
 
@@ -511,14 +813,27 @@ def main():
     launches, shapes, host = run_extraction(torch, model, scp, WORK_DIR)
     check_reference(torch, model, scp, host)
     replay_mix(torch, shapes, rows, flush)
-    del flush
     run_server(model, scp)
 
-    # no single PyTorch call computes either function: library_ms is null
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], library_ms=None,
-                    **{k: v for k, v in rows[name].items() if v is not None})
-               for name, (src, rep) in SOURCES.items()]
+    train, valid = write_corpus(WORK_DIR)
+    train_launches, train_shapes, trained, step_time = run_training(
+        torch, WORK_DIR, train, valid)
+    profile = profile_train_group(torch, trained, train)
+    replay_mix(torch, train_shapes, rows, flush, prefix="train_mix_")
+    del flush
+    check_step_against_cpu(torch, trained, train)
+    extract_trained(trained, scp, WORK_DIR)
+    smi_line = smi[0]
+    print("training summary (%s): %s" % (smi_line, json.dumps(dict(step_time, **(profile or {})))))
+
+    # no single PyTorch call computes any of the three functions: library_ms is null
+    kernels = []
+    for name, (src, rep) in SOURCES.items():
+        by_path = {"extract": launches.get(name, 0), "train": train_launches[name]}
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=sum(by_path.values()), launches_by_path=by_path, library_ms=None,
+            **{k: v for k, v in rows[name].items() if v is not None}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

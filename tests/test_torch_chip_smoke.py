@@ -22,12 +22,16 @@ def _chip_smoke():
 
 
 # Bytes each kernel must move: every input read once, every output written
-# once (the bf16 pooling reads x and the f32 mask and writes [B, 2D] bf16).
+# once (the bf16 pooling reads x and the f32 mask and writes [B, 2D] bf16;
+# its backward reads x, the mask, out and g and writes gx).
 @pytest.mark.parametrize("cost, shape, nbytes", [
     ("pooling", (32, 386, 1500, 2), 37_297_408),
     ("pooling", (32, 386, 1500, 4), 74_545_408),
     ("dequant", (32, 400, 30), 1_935_360),
     ("dequant", (256, 1200, 30), 46_202_880),
+    ("pooling_bwd", (64, 286, 1500, 2), 110_665_216),
+    ("pooling_bwd", (64, 286, 1500, 4), 221_257_216),
+    ("pooling_bwd", (1, 1, 4, 2), 1 * 1 * 4 * 2 * 2 + 4 + 4 * 4 * 2),
 ])
 def test_kernel_bytes(cost, shape, nbytes):
     cs = _chip_smoke()
@@ -56,3 +60,25 @@ def test_exits_nonzero_without_cuda(where, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_pooling_backward_operations():
+    """A subtract, a multiply-add and a multiply per element of x: four
+    operations, far below the bytes at any shape."""
+    cs = _chip_smoke()
+    nbytes, flops = cs.pooling_bwd_cost(64, 286, 1500, 2)
+    assert flops == 4 * 64 * 286 * 1500
+    ms, by = cs.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(0.033034392835820894)
+
+
+def test_training_config_is_the_flagship():
+    """The training phase runs __graft_entry__.FLAGSHIP (with fused pooling)
+    from the device pool, cut only in epochs and steps."""
+    cs = _chip_smoke()
+    extra = {k: v for k, v in cs.TRAIN.items() if k not in cs.FLAGSHIP}
+    assert {k: cs.TRAIN[k] for k in cs.FLAGSHIP} == cs.FLAGSHIP
+    assert extra == dict(device_pool=True, num_steps_per_epoch=16, steps_per_dispatch=8,
+                         num_epochs=2, learning_rate=0.01, valid_max_iterations=2,
+                         show_training_progress=8, check_numerics=True)
+    assert cs.FLAGSHIP["compute_dtype"] == "bfloat16" and cs.FLAGSHIP["use_fused_pooling"]

@@ -21,6 +21,8 @@ from tf_kaldi_speaker_tpu_torch.ops import _build
 from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize, cm_dequantize_plain
 from tf_kaldi_speaker_tpu_torch.ops.pooling import (
     masked_stats_pooling,
+    masked_stats_pooling_backward,
+    masked_stats_pooling_backward_plain,
     masked_stats_pooling_plain,
 )
 from tf_kaldi_speaker_tpu_torch.train.checkpoints import save_checkpoint
@@ -31,6 +33,10 @@ pytestmark = pytest.mark.gpu
 DEQ_TOL = dict(rtol=1e-6, atol=1e-6)
 POOL_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=0.0)  # one bf16 ulp
+# pooling backward against its plain version (float32 inside, rounded once):
+# float32 to reassociation; bf16 one ulp, and the float32 noise where the
+# mean and deviation terms cancel
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=2.0 ** -7, atol=1e-6)}
 TINY = dict(network_type="tdnn", tdnn_layer_size=16, num_nodes_pooling_layer=32,
             num_nodes_last_layer=16, pooling_type="statistics_pooling",
             embedding_node="tdnn6_dense", use_fused_pooling=True)
@@ -250,3 +256,80 @@ def test_device_pipe_on_card_matches_cpu(cuda, tmp_path):
     assert set(got) == set(want) and len(got) == 6
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+def _bwd_inputs(x, mask, seed):
+    """The forward's out (plain version, as the backward receives it) and
+    an incoming gradient."""
+    out = masked_stats_pooling_plain(x, mask)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed)).to(x.dtype)
+    return out, g
+
+
+def _check_bwd(cuda, x, mask, out, g, dtype, xd=None):
+    n = masked_stats_pooling_backward.launches
+    xd = x.to(cuda) if xd is None else xd
+    got = masked_stats_pooling_backward(xd, mask.to(cuda), out.to(cuda), g.to(cuda))
+    torch.cuda.synchronize()
+    # an empty x launches nothing
+    assert masked_stats_pooling_backward.launches == n + (x.numel() > 0)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    want = masked_stats_pooling_backward_plain(x, mask, out, g)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               **BWD_TOL[dtype])
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 286, 1500), (64, 186, 1500), (3, 50, 20),
+                                   (4, 90, 1501), (5, 33, 257), (2, 0, 33), (1, 300, 8)])
+def test_stats_pooling_backward_kernel(cuda, dtype, shape):
+    dt = getattr(torch, dtype)
+    x, mask = _ragged(7, *shape)
+    x = x.to(dt)
+    out, g = _bwd_inputs(x, mask, 8)
+    _check_bwd(cuda, x, mask, out, g, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d, aligned", [(1500, True), (1500, False), (1501, True), (257, True)])
+def test_stats_pooling_backward_kernel_hard_masks(cuda, dtype, d, aligned):
+    """Empty, fractional and late masks; a floored column (constant x);
+    misaligned x takes the scalar path."""
+    dt = getattr(torch, dtype)
+    x, mask = _hard_masks(9, 4, 434, d)
+    x[3, :, 5] = 2.5  # constant column: variance floored, no std gradient
+    x = x.to(dt)
+    out, g = _bwd_inputs(x, mask, 10)
+    got = _check_bwd(cuda, x, mask, out, g, dtype,
+                     xd=None if aligned else _misaligned(x, cuda)).float().cpu()
+    assert not got[0].any()  # no valid frame
+    n = float(mask[3].sum())
+    np.testing.assert_allclose(got[3, :, 5].numpy(), (mask[3] * float(g[3, 5]) / n).numpy(),
+                               rtol=2.0 ** -7, atol=1e-7)
+
+
+def test_stats_pooling_backward_through_autograd(cuda):
+    """The train step's path: the Function's backward launches the kernel,
+    once per backward, in the forward's dtype."""
+    x, mask = _ragged(11, 8, 120, 96)
+    xd = x.to(torch.bfloat16).to(cuda).requires_grad_(True)
+    w = torch.randn(8, 192, generator=torch.Generator().manual_seed(12)).to(cuda)
+    n = (masked_stats_pooling.launches, masked_stats_pooling_backward.launches)
+    torch.sum(masked_stats_pooling(xd, mask.to(cuda)).float() * w).backward()
+    torch.cuda.synchronize()
+    assert (masked_stats_pooling.launches, masked_stats_pooling_backward.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert xd.grad.dtype == torch.bfloat16 and torch.isfinite(xd.grad.float()).all()
+
+
+def test_stats_pooling_backward_raises_on_what_it_does_not_take(cuda):
+    x, mask = _ragged(13, 2, 10, 8)
+    out, g = _bwd_inputs(x, mask, 14)
+    xd, md, od, gd = (t.to(cuda) for t in (x, mask, out, g))
+    with pytest.raises(TypeError):
+        masked_stats_pooling_backward(xd, md, od.to(torch.bfloat16), gd)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_stats_pooling_backward(xd, md, od, gd.t().contiguous().t())
+    with pytest.raises(ValueError, match="CUDA device"):
+        masked_stats_pooling_backward(xd, mask, od, gd)

@@ -133,13 +133,17 @@ def test_converter_rejects_unconsumed_and_misshapen_arrays():
 
 
 def test_unported_network_and_train_mode_raise():
+    """Unported networks and poolings raise; train mode, ported with the
+    trainer, runs and moves the BatchNorm statistics (its parity with flax
+    is in test_torch_train.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EntireNetwork(TINY, D, network_type="ecapa_tdnn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EntireNetwork(dict(TINY, pooling_type="self_attention"), D)
     net = EntireNetwork(TINY, D).train()
-    with pytest.raises(NotImplementedError, match="eval"):
-        net(torch.zeros(1, 30, D))
+    out, _ = net(torch.randn(2, 30, D, generator=torch.Generator().manual_seed(0)))
+    assert torch.isfinite(out).all()
+    assert not torch.equal(net.tdnn.tdnn1_bn.mean, torch.zeros_like(net.tdnn.tdnn1_bn.mean))
 
 
 def test_flagship_width_matches_jax():

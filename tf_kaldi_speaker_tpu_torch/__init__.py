@@ -7,13 +7,21 @@ package: what it needs of the numpy-only modules there (the Kaldi codec,
 the config reader) it carries itself.
 
 - ``kio``      Kaldi ark/scp codec (float matrices and vectors, CM codes)
-- ``models``   TDNN x-vector network and statistics pooling (eval mode)
+               and the data-directory reader
+- ``models``   TDNN x-vector network and statistics pooling
+- ``losses``   the margin-softmax family and its head
 - ``ops``      the CUDA kernels (CM dequantization, fused statistics
-               pooling; sources in ``csrc/``) and batched CMVN / VAD
+               pooling forward and backward; sources in ``csrc/``) and
+               batched CMVN / VAD
+- ``data``     speaker index, samplers, prefetch loader, the device pool
 - ``convert``  JAX variable tree <-> the port's modules
-- ``train``    checkpoints (reads the JAX package's msgpack files)
+- ``train``    the trainer (train step, optimizers, device-pool epochs,
+               validation) and checkpoints (reads the JAX package's msgpack
+               files)
 - ``extract``  bucketed extraction, the decode-on-device pipe, the server
-- ``cli``      ``extract`` and ``serve``
+- ``backend``  validation metrics (EER)
+- ``utils``    config, bookkeeping, synthetic data dirs
+- ``cli``      ``train``, ``extract`` and ``serve``
 """
 
 __version__ = "0.1.0"

@@ -1,56 +1,118 @@
 """Layout conversion between the JAX variable tree and the port's modules.
 
-The JAX package keeps a network's variables as a nested tree,
-``{"params": {"tdnn": {...}}, "batch_stats": {"tdnn": {...}}}``
-(``extract/extractor.py:91-94``); the port keeps them in an
-:class:`~tf_kaldi_speaker_tpu_torch.models.tdnn.EntireNetwork`. This module
-is the only place where layouts change:
+The JAX package keeps variables as a nested tree of collections: a
+network's ``{"params": {"tdnn": {...}}, "batch_stats": {"tdnn": {...}}}``
+(``extract/extractor.py:91-94``), and the trainer's
+``{"params": {"network": {"tdnn": {...}}, "softmax": {"output_kernel",
+...}}, "batch_stats": {"network": {...}}}``. The port keeps them in
+modules (:class:`~tf_kaldi_speaker_tpu_torch.models.tdnn.EntireNetwork`,
+:class:`~tf_kaldi_speaker_tpu_torch.train.trainer.XVectorModel`) whose
+submodule names are the JAX package's. This module is the only place where
+layouts change:
 
-- conv kernel ``[k, in, out]`` <-> ``weight [out, in, k]``
-- dense kernel ``[in, out]`` <-> ``weight [out, in]``
-- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
-  (batch_stats), PReLU ``alpha`` and every bias: copied as they are.
+- a module path ``a.b.leaf`` is the JAX path ``(collection, a, b, leaf)``;
+  the collection is ``batch_stats`` for BatchNorm's ``mean``/``var`` and
+  ``params`` for everything else;
+- conv kernel ``[k, in, out]`` <-> ``weight [out, in, k]`` and dense kernel
+  ``[in, out]`` <-> ``weight [out, in]`` (both "reverse all axes");
+- BatchNorm ``scale``/``bias``, PReLU ``alpha``, every bias and the loss
+  head's ``output_kernel`` [D, C]: copied as they are.
 
-Both reversals are "reverse all axes". An array the converter does not
-consume, or one of the wrong shape, raises.
+An array the converter does not consume, a missing one, or one of the wrong
+shape raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.tdnn import EntireNetwork
 
 _BATCH_STATS = ("mean", "var")
 
 
-def _jax_path(module_path: str) -> Tuple[str, ...]:
-    """'tdnn1_conv.weight' -> ('params', 'tdnn', 'tdnn1_conv', 'kernel')."""
-    module, leaf = module_path.split(".")
+def jax_path(name: str) -> Tuple[str, ...]:
+    """'tdnn.tdnn1_conv.weight' -> ('params', 'tdnn', 'tdnn1_conv', 'kernel')."""
+    *modules, leaf = name.split(".")
     collection = "batch_stats" if leaf in _BATCH_STATS else "params"
-    return (collection, "tdnn", module, "kernel" if leaf == "weight" else leaf)
+    return (collection, *modules, "kernel" if leaf == "weight" else leaf)
 
 
-def _reverse_axes(t: torch.Tensor, leaf: str) -> torch.Tensor:
-    return t.permute(*reversed(range(t.dim()))) if leaf == "weight" else t
+def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A module tensor in the JAX layout, as a contiguous CPU copy."""
+    t = t.detach().cpu()
+    if name.endswith(".weight"):
+        t = t.permute(*reversed(range(t.dim())))
+    return t.contiguous().clone()
 
 
-def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+def from_jax_layout(name: str, v: Any) -> torch.Tensor:
+    """A JAX array (numpy or tensor) in the module's layout, on the CPU."""
+    t = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+    if name.endswith(".weight"):
+        t = t.permute(*reversed(range(t.dim())))
+    return t
+
+
+def flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            out.update(_flatten(v, prefix + (str(k),)))
+            out.update(flatten(v, prefix + (str(k),)))
         return out
     return {prefix: tree}
 
 
-def _as_tensor(v: Any) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu()
-    return torch.from_numpy(np.array(v))
+def _insert(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def tree_from_named(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    """Module-named tensors as a JAX tree with collections
+    ({"params": ..., "batch_stats": ...}), contiguous CPU copies."""
+    tree: Dict[str, Any] = {}
+    for name, t in named:
+        _insert(tree, jax_path(name), to_jax_layout(name, t))
+    return tree
+
+
+def named_from_tree(tree: Dict[str, Any], refs: Dict[str, torch.Tensor],
+                    what: str = "variables") -> Dict[str, torch.Tensor]:
+    """The tensors of ``tree`` (a JAX tree with collections) for each name
+    of ``refs``, in the module layout and the reference's dtype; raises on a
+    missing, a misshapen or an unconsumed array."""
+    flat = flatten(tree)
+    out = {}
+    for name, ref in refs.items():
+        path = jax_path(name)
+        if path not in flat:
+            raise KeyError("%s hold no %s (for %s)" % (what, "/".join(path), name))
+        t = from_jax_layout(name, flat.pop(path))
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError("%s: shape %s does not fit %s %s" % (
+                "/".join(path), tuple(t.shape), name, tuple(ref.shape)))
+        out[name] = t.to(ref.dtype).contiguous()
+    if flat:
+        raise ValueError("%s not consumed: %s" % (what, sorted("/".join(p) for p in flat)))
+    return out
+
+
+def variables_of(module: nn.Module) -> Dict[str, Any]:
+    """The JAX variable tree of ``module`` as contiguous CPU tensors."""
+    return tree_from_named(module.state_dict().items())
+
+
+def load_variables(module: nn.Module, variables: Dict[str, Any]) -> None:
+    """Copy a JAX variable tree (numpy arrays or CPU tensors) into
+    ``module``; every array must be consumed."""
+    refs = module.state_dict()
+    module.load_state_dict(named_from_tree(variables, refs, "variables"))
 
 
 def network_from_variables(
@@ -58,33 +120,15 @@ def network_from_variables(
 ) -> EntireNetwork:
     """Build an eval-mode float32 :class:`EntireNetwork` on the CPU from the
     JAX variable tree (numpy arrays or CPU tensors)."""
-    flat = _flatten(variables)
     first = ("params", "tdnn", "tdnn1_conv", "kernel")
+    flat = flatten(variables)
     if first not in flat:
         raise KeyError("variables hold no %s" % "/".join(first))
     net = EntireNetwork(config, int(np.shape(flat[first])[1]), network_type)
-    state = {}
-    for name, ref in net.tdnn.state_dict().items():
-        path = _jax_path(name)
-        if path not in flat:
-            raise KeyError("variables hold no %s (for %s)" % ("/".join(path), name))
-        t = _reverse_axes(_as_tensor(flat.pop(path)), name.split(".")[1])
-        if tuple(t.shape) != tuple(ref.shape):
-            raise ValueError("%s: shape %s does not fit %s %s" % (
-                "/".join(path), tuple(t.shape), name, tuple(ref.shape)))
-        state[name] = t.to(torch.float32).contiguous()
-    if flat:
-        raise ValueError("variables not consumed by the %s network: %s" % (
-            network_type, sorted("/".join(p) for p in flat)))
-    net.tdnn.load_state_dict(state)
+    load_variables(net, variables)
     return net.eval()
 
 
 def variables_from_network(net: EntireNetwork) -> Dict[str, Any]:
     """The JAX variable tree of ``net`` as contiguous CPU tensors."""
-    tree: Dict[str, Any] = {}
-    for name, t in net.tdnn.state_dict().items():
-        collection, top, module, leaf = _jax_path(name)
-        t = _reverse_axes(t.detach().cpu(), name.split(".")[1]).contiguous().clone()
-        tree.setdefault(collection, {}).setdefault(top, {}).setdefault(module, {})[leaf] = t
-    return tree
+    return variables_of(net)

@@ -56,11 +56,17 @@
 
 #include <algorithm>
 
+#include "vec4.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kVec = 4;             // adjacent columns per thread
+using tfks::F4;
+using tfks::from_f32;
+using tfks::kVec;
+using tfks::load4;
+
 constexpr int kTx = 32;             // threadIdx.x: column groups
 constexpr int kTy = 8;              // threadIdx.y: frame stride
 constexpr int kThreads = kTx * kTy;
@@ -74,50 +80,6 @@ constexpr int kMaxSplits = 8;       // the portable cluster size
 // per SM, and a grid past one wave of them pays for a second.
 constexpr float kBlocksPerSm = 2.5f;
 constexpr float kVarFloor = 1e-12f;  // VAR2STD_EPSILON
-
-struct F4 {
-  float v[kVec];
-};
-
-// Four adjacent values at p as float; kWide: one vector load (p aligned to
-// 4 elements, all 4 columns in range), else scalar loads of the first n.
-template <bool kWide>
-__device__ __forceinline__ F4 load4(const float* p, int n) {
-  F4 r;
-  if (kWide) {
-    const float4 u = __ldcs(reinterpret_cast<const float4*>(p));
-    r.v[0] = u.x, r.v[1] = u.y, r.v[2] = u.z, r.v[3] = u.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) r.v[j] = j < n ? p[j] : 0.0f;
-  }
-  return r;
-}
-
-template <bool kWide>
-__device__ __forceinline__ F4 load4(const __nv_bfloat16* p, int n) {
-  F4 r;
-  if (kWide) {
-    // bf16 -> f32 is the bf16 bits in the high half of the f32 word
-    // (little-endian: the lower address holds the low half).
-    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
-    r.v[0] = __uint_as_float(u.x << 16), r.v[1] = __uint_as_float(u.x & 0xffff0000u);
-    r.v[2] = __uint_as_float(u.y << 16), r.v[3] = __uint_as_float(u.y & 0xffff0000u);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) r.v[j] = j < n ? __bfloat162float(p[j]) : 0.0f;
-  }
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
 
 struct Sums {
   float w = 0.0f;

@@ -1,7 +1,7 @@
 """Kaldi ark/scp I/O for the port, numpy only: float matrices (compressed
 included), raw compressed-matrix codes for the device pipe, float vectors,
-and r/w-specifiers. Counterpart of ``tf_kaldi_speaker_tpu/kio`` for the
-formats the port reads and writes."""
+r/w-specifiers, and the data-directory ``FeatureReader``. Counterpart of
+``tf_kaldi_speaker_tpu/kio`` for the formats the port reads and writes."""
 
 from .ark import (
     ArkScpWriter,
@@ -18,10 +18,12 @@ from .ark import (
     write_mat,
     write_vec_flt,
 )
+from .reader import FeatureReader
 from .rspecifier import SubprocessFailed, open_or_fd, popen, read_key
 
 __all__ = [
     "ArkScpWriter",
+    "FeatureReader",
     "SubprocessFailed",
     "compress_matrix",
     "decode_cm_codes",

@@ -1,0 +1,25 @@
+"""Loss zoo of the port: the margin-softmax family and its head."""
+
+from .head import LOSS_NAMES, STRUCTURAL_LOSSES, LossHead
+from .margin import (
+    amsoftmax_loss,
+    arcsoftmax_loss,
+    asoftmax_loss,
+    asoftmax_phi,
+    margin_annealing_lambda,
+    softmax_loss,
+    sparse_softmax_xent,
+)
+
+__all__ = [
+    "LOSS_NAMES",
+    "STRUCTURAL_LOSSES",
+    "LossHead",
+    "amsoftmax_loss",
+    "arcsoftmax_loss",
+    "asoftmax_loss",
+    "asoftmax_phi",
+    "margin_annealing_lambda",
+    "softmax_loss",
+    "sparse_softmax_xent",
+]

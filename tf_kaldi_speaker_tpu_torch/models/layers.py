@@ -2,7 +2,7 @@
 
 Counterpart of ``tf_kaldi_speaker_tpu/models/layers.py`` (reference
 ``model/common.py``): the activation factory, glorot-uniform init with zero
-bias, eval-mode BatchNorm over the last axis and L2 re-scaling.
+bias, BatchNorm over the last axis (train and eval mode) and L2 re-scaling.
 """
 
 from __future__ import annotations
@@ -56,26 +56,41 @@ def init_affine_(layer: nn.Module, generator: Optional[torch.Generator] = None) 
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis of [..., C], eval mode:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` with the reference's
-    epsilon 1e-3. Parameter and buffer names follow the JAX package
-    (scale, bias, mean, var). Train mode and the running-statistics update are not
-    ported yet."""
+    """BatchNorm over the last axis of [..., C], as flax ``nn.BatchNorm``
+    (0.12) computes it with the reference's epsilon 1e-3:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. Parameter and buffer
+    names follow the JAX package (scale, bias, mean, var).
 
-    def __init__(self, width: int):
+    Eval mode normalizes with the running statistics. Train mode takes the
+    batch's over every axis but the last, in float32 whatever x's dtype,
+    with flax's fast variance max(E[x²] - E[x]², 0); it normalizes in
+    float32, rounds to x's dtype, and updates the running statistics in
+    place as ``r = momentum * r + (1 - momentum) * batch`` with the biased
+    batch variance (not torch's BatchNorm convention, whose momentum is the
+    complement and whose running variance is unbiased)."""
+
+    def __init__(self, width: int, momentum: float = 0.99):
         super().__init__()
+        self.momentum = float(momentum)
         self.scale = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.register_buffer("mean", torch.zeros(width))
         self.register_buffer("var", torch.ones(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP.md §1, "
-                "trainer); call .eval() on the network")
-        mul = torch.rsqrt(self.var + TF_BN_EPSILON) * self.scale
-        return (x - self.mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.var + TF_BN_EPSILON) * self.scale
+            return (x - self.mean) * mul + self.bias
+        xf = x.to(torch.float32)
+        dims = tuple(range(x.dim() - 1))
+        mean = torch.mean(xf, dim=dims)
+        var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + TF_BN_EPSILON) * self.scale.to(torch.float32)
+        return ((xf - mean) * mul + self.bias.to(torch.float32)).to(x.dtype)
 
 
 def l2_scaling(x: torch.Tensor, scaling_factor: float, epsilon: float = 1e-12) -> torch.Tensor:

@@ -9,7 +9,9 @@ so ``embedding_node`` picks a tap unchanged. Submodules carry the JAX
 package's module names (``tdnn1_conv``, ``tdnn1_bn``, ``tdnn1_prelu``, ...), so the
 converter (``convert.py``) maps one tree onto the other by name.
 
-Eval mode only: train mode and the BatchNorm update come with the trainer.
+``.train()`` / ``.eval()`` select the JAX package's ``train`` flag: in train
+mode every BatchNorm normalizes with the batch's statistics and updates its
+running ones (momentum ``batchnorm_momentum``, default 0.99).
 """
 
 from __future__ import annotations
@@ -42,11 +44,12 @@ class TDNN(nn.Module):
         pool_width = cfg.get("num_nodes_pooling_layer", 1500)
         last_layer_no_bn = cfg.get("last_layer_no_bn", False)
         last_layer_linear = cfg.get("last_layer_linear", False)
+        bn_momentum = cfg.get("batchnorm_momentum", 0.99)
 
         d_in = input_dim
         for i, ksize in CONV_LAYERS:
             setattr(self, "tdnn%d_conv" % i, nn.Conv1d(d_in, width, ksize))
-            setattr(self, "tdnn%d_bn" % i, BatchNorm(width))
+            setattr(self, "tdnn%d_bn" % i, BatchNorm(width, bn_momentum))
             setattr(self, "tdnn%d_prelu" % i, act(width))
             d_in = width
         dense = (("tdnn4", width, width), ("tdnn5", width, pool_width),
@@ -55,7 +58,7 @@ class TDNN(nn.Module):
         for name, n_in, n_out in dense:
             setattr(self, name + "_dense", nn.Linear(n_in, n_out))
             if name != "tdnn7" or not last_layer_no_bn:
-                setattr(self, name + "_bn", BatchNorm(n_out))
+                setattr(self, name + "_bn", BatchNorm(n_out, bn_momentum))
             if name != "tdnn7" or not last_layer_linear:
                 setattr(self, name + "_prelu", act(n_out))
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``tf_kaldi_speaker_tpu_torch/csrc`` have a plain C interface.
-At first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/tfks_torch_kernels/`` (named by a hash of the sources
-and flags, so an edited source is rebuilt), and the library is loaded with
+At first use ``nvcc`` compiles each source for ``sm_90a``, all at once in
+parallel processes, and links the objects into one shared library under
+``build/tfks_torch_kernels/`` (named by a hash of the sources, the headers
+and the flags, so an edited file is rebuilt); the library is loaded with
 ``ctypes``. Tensors are passed as ``data_ptr()`` integers and the stream as
 ``torch.cuda.current_stream().cuda_stream``; every entry point returns
 ``cudaGetLastError()`` after its launch, and :func:`check` raises on
@@ -22,11 +23,12 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("cm_dequant.cu", "stats_pooling.cu")
+SOURCES = ("cm_dequant.cu", "stats_pooling.cu", "stats_pooling_bwd.cu")
+HEADERS = ("vec4.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tfks_torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +40,8 @@ _ENTRY_POINTS = {
     "tfks_stats_pooling_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_bf16": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_splits": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
+    "tfks_stats_pooling_bwd_f32": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "tfks_stats_pooling_bwd_bf16": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
 }
 
 _lock = threading.Lock()
@@ -61,10 +65,28 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, "libtfks_kernels_%s.so" % h.hexdigest()[:16])
+
+
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); returns their logs, raises on a failure."""
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append("exit %d: %s\n%s" % (proc.returncode, " ".join(cmd), out))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(logs)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
 
 
 def build() -> str:
@@ -75,14 +97,18 @@ def build() -> str:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(CSRC_DIR, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d): %s\n%s%s" % (
-            proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+    nvcc = _nvcc()
+    objs = ["%s.%s.o" % (tmp, os.path.splitext(s)[0]) for s in SOURCES]
+    try:
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, s), "-o", o])
+                    for s, o in zip(SOURCES, objs)])
+        log += _run([_start([nvcc, "-shared", "-o", tmp, *objs])])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)
-    return proc.stdout + proc.stderr
+    return log
 
 
 def load() -> ctypes.CDLL:

@@ -1,10 +1,12 @@
-"""Fused masked statistics pooling on the GPU.
+"""Fused masked statistics pooling on the GPU, forward and backward.
 
 Counterpart of ``tf_kaldi_speaker_tpu/ops/pooling_pallas.py``. The forward
 reads the activations once and derives the masked mean and the floored
 standard deviation from one pass of sums (CUDA kernel
-``csrc/stats_pooling.cu``); the backward is the analytic formula of the JAX
-custom VJP, in plain PyTorch as it is plain jnp there.
+``csrc/stats_pooling.cu``). The backward is the analytic formula of the JAX
+custom VJP (``_bwd``, jnp there); here it is a CUDA kernel too
+(``csrc/stats_pooling_bwd.cu``), which reads x once and writes the
+gradient once.
 """
 
 from __future__ import annotations
@@ -30,30 +32,57 @@ def masked_stats_pooling_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Ten
     return torch.cat([mean, std], dim=1).to(x.dtype)
 
 
+def masked_stats_pooling_backward_plain(
+    x: torch.Tensor, mask: torch.Tensor, out: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of the backward (pooling_pallas.py:100-116): d mean/dx
+    = m/n, d std/dx = m (x - mean) / (n std), zero where the variance was
+    floored. In float32 whatever x's dtype, as the kernel computes it, and
+    rounded to x's dtype once."""
+    d = x.shape[-1]
+    of, gf = out.to(torch.float32), g.to(torch.float32)
+    mean, std = of[:, None, :d], of[:, None, d:]
+    g_mean, g_std = gf[:, None, :d], gf[:, None, d:]
+    m = mask.to(torch.float32)[:, :, None]
+    inv_n = 1.0 / torch.clamp_min(torch.sum(m, dim=1, keepdim=True), 1.0)
+    floored = (std * std <= VAR2STD_EPSILON * (1 + 1e-6)).to(torch.float32)
+    gx = m * inv_n * g_mean
+    gx = gx + m * inv_n * (x.to(torch.float32) - mean) / std * (g_std * (1.0 - floored))
+    return gx.to(x.dtype)
+
+
 _KERNELS = {
     torch.float32: "tfks_stats_pooling_f32",
     torch.bfloat16: "tfks_stats_pooling_bf16",
 }
+_BWD_KERNELS = {
+    torch.float32: "tfks_stats_pooling_bwd_f32",
+    torch.bfloat16: "tfks_stats_pooling_bwd_bf16",
+}
+
+
+def _check_inputs(what, x, mask, kernels):
+    if x.device.type != "cuda" or mask.device != x.device:
+        raise ValueError("%s: x (%s) and mask (%s) must be on one CUDA device"
+                         % (what, x.device, mask.device))
+    if x.dtype not in kernels or mask.dtype != torch.float32:
+        raise TypeError("%s: needs float32 or bfloat16 x and a float32 mask, "
+                        "got %s and %s" % (what, x.dtype, mask.dtype))
+    if x.dim() != 3:
+        raise ValueError("%s: x must be [B, L, D], got %s" % (what, tuple(x.shape)))
+    b, l, d = x.shape
+    if tuple(mask.shape) != (b, l):
+        raise ValueError("%s: mask must be [%d, %d], got %s"
+                         % (what, b, l, tuple(mask.shape)))
+    if not (x.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("%s: inputs must be contiguous" % what)
+    if b > 65535:
+        raise ValueError("%s: at most 65535 rows, got %d" % (what, b))
+    return b, l, d
 
 
 def _stats_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    if x.device.type != "cuda" or mask.device != x.device:
-        raise ValueError("masked_stats_pooling: x (%s) and mask (%s) must be "
-                         "on one CUDA device" % (x.device, mask.device))
-    if x.dtype not in _KERNELS or mask.dtype != torch.float32:
-        raise TypeError("masked_stats_pooling: needs float32 or bfloat16 x and "
-                        "a float32 mask, got %s and %s" % (x.dtype, mask.dtype))
-    if x.dim() != 3:
-        raise ValueError("masked_stats_pooling: x must be [B, L, D], got %s"
-                         % tuple(x.shape))
-    b, l, d = x.shape
-    if tuple(mask.shape) != (b, l):
-        raise ValueError("masked_stats_pooling: mask must be [%d, %d], got %s"
-                         % (b, l, tuple(mask.shape)))
-    if not (x.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("masked_stats_pooling: inputs must be contiguous")
-    if b > 65535:
-        raise ValueError("masked_stats_pooling: at most 65535 rows, got %d" % b)
+    b, l, d = _check_inputs("masked_stats_pooling", x, mask, _KERNELS)
     out = torch.empty((b, 2 * d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -68,10 +97,44 @@ def _stats_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def masked_stats_pooling_backward(
+    x: torch.Tensor, mask: torch.Tensor, out: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Gradient of the pooling with respect to x: x [B, L, D], mask [B, L],
+    the forward's out [B, 2D] and the incoming gradient g [B, 2D] ->
+    [B, L, D] in x's dtype.
+
+    CPU tensors take :func:`masked_stats_pooling_backward_plain`; CUDA
+    tensors launch the kernel, and anything it does not take raises."""
+    if all(t.device.type == "cpu" for t in (x, mask, out, g)):
+        return masked_stats_pooling_backward_plain(x, mask, out, g)
+    what = "masked_stats_pooling_backward"
+    b, l, d = _check_inputs(what, x, mask, _BWD_KERNELS)
+    for name, t in (("out", out), ("g", g)):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError("%s: %s must be %s on %s like x, got %s on %s"
+                            % (what, name, x.dtype, x.device, t.dtype, t.device))
+        if tuple(t.shape) != (b, 2 * d) or not t.is_contiguous():
+            raise ValueError("%s: %s must be a contiguous [%d, %d], got %s"
+                             % (what, name, b, 2 * d, tuple(t.shape)))
+    gx = torch.empty_like(x)
+    if gx.numel() == 0:
+        return gx
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _BWD_KERNELS[x.dtype])(
+            x.data_ptr(), mask.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(),
+            b, l, d, stream)
+    _build.check(err, what)
+    masked_stats_pooling_backward.launches += 1
+    masked_stats_pooling_backward.shapes[(b, l, d), str(x.dtype)[6:]] += 1
+    return gx
+
+
 class MaskedStatsPooling(torch.autograd.Function):
-    """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Backward: d mean/dx = m/n, d std/dx = m (x - mean) / (n std),
-    zero where the variance was floored (pooling_pallas.py:100-116)."""
+    """The forward and backward kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, mask):
@@ -85,15 +148,7 @@ class MaskedStatsPooling(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, mask, out = ctx.saved_tensors
-        d = x.shape[-1]
-        mean, std = out[:, None, :d], out[:, None, d:]
-        g_mean, g_std = g[:, None, :d], g[:, None, d:]
-        m = mask[:, :, None].to(x.dtype)
-        inv_n = 1.0 / torch.clamp_min(torch.sum(m, dim=1, keepdim=True), 1.0)
-        floored = (std * std <= VAR2STD_EPSILON * (1 + 1e-6)).to(x.dtype)
-        gx = m * inv_n * g_mean
-        gx = gx + m * inv_n * (x - mean) / std * (g_std * (1.0 - floored))
-        return gx, None
+        return masked_stats_pooling_backward(x, mask, out, g.contiguous()), None
 
 
 def masked_stats_pooling(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -104,6 +159,8 @@ def masked_stats_pooling(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 # Kernel launches, and launches by ((B, L, D), dtype name), counted where
-# the kernel is launched; chip_smoke.py reads both after the main path.
+# each kernel is launched; chip_smoke.py reads them after the main path.
 masked_stats_pooling.launches = 0
 masked_stats_pooling.shapes = collections.Counter()
+masked_stats_pooling_backward.launches = 0
+masked_stats_pooling_backward.shapes = collections.Counter()

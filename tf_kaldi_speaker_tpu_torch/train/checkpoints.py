@@ -6,10 +6,16 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/checkpoints.py``. Inside
 - ``model-<step>.pt``       written by the port with ``torch.save``: the
   same nested tree, in the JAX package's layout, as its msgpack, as CPU
   tensors (``convert.py`` is the only place where layouts change). Loaded
-  with ``weights_only=True``.
+  with ``weights_only=True``. A train state holds ``params`` and
+  ``batch_stats`` (``params/network/tdnn/...``,
+  ``params/softmax/output_kernel``), ``opt_state`` (``{}``, ``{"trace":
+  tree}`` or ``{"count", "mu", "nu"}``, trees in the params' layout) and
+  ``step``.
 - ``model-<step>.msgpack``  written by the JAX package (msgpack with
   its own array extension types). The port decodes it itself when no ``.pt`` of that step
-  exists, so a model dir trained by the JAX package serves from the port.
+  exists, so a model dir trained by the JAX package serves from the port,
+  and its train state resumes there (:func:`opt_state_from_raw` reads
+  optax's chain layout).
 - ``checkpoint``            TF-style text pointer file:
       model_checkpoint_path: "model-<step>"
       all_model_checkpoint_paths: "model-<k>" ...
@@ -19,7 +25,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,15 +68,42 @@ def write_pointer(model_dir: str, step: int) -> None:
             f.write('all_model_checkpoint_paths: "model-%d"\n' % s)
 
 
-def save_checkpoint(model_dir: str, tree: Any, step: int) -> str:
-    """Write ``tree`` (nested dicts of tensors) as ``model-<step>.pt`` and
-    point the pointer file at it."""
+def save_checkpoint(model_dir: str, tree: Any, step: int, keep_max: int = 0) -> str:
+    """Write ``tree`` (nested dicts of tensors) as ``model-<step>.pt``, keep
+    only the newest ``keep_max`` steps (all when 0) and point the pointer
+    file at it."""
     os.makedirs(model_dir, exist_ok=True)
     path = os.path.join(model_dir, "model-%d.pt" % step)
     torch.save(tree, path + ".tmp")
     os.replace(path + ".tmp", path)
+    if keep_max and keep_max > 0:
+        for s in list_steps(model_dir)[:-keep_max]:
+            for ext in ("pt", "msgpack"):
+                old = os.path.join(model_dir, "model-%d.%s" % (s, ext))
+                if os.path.exists(old):
+                    os.remove(old)
     write_pointer(model_dir, step)
     return path
+
+
+def opt_state_from_raw(opt_state: Any) -> Dict[str, Any]:
+    """The optimizer state of a loaded checkpoint in the port's layout:
+    ``{}``, ``{"trace": tree}`` or ``{"count": int, "mu": tree, "nu":
+    tree}``. A JAX checkpoint holds optax's chain, a dict of the chained
+    states by position (``{"0": {}, "1": {"trace": ...}}`` with clipping);
+    the one that carries a trace or Adam moments is taken."""
+    if not isinstance(opt_state, dict):
+        return {}
+    if "trace" in opt_state:
+        return {"trace": opt_state["trace"]}
+    if "mu" in opt_state:
+        return {"count": int(opt_state["count"]), "mu": opt_state["mu"],
+                "nu": opt_state["nu"]}
+    for key in sorted(opt_state, key=lambda k: (len(str(k)), str(k))):
+        found = opt_state_from_raw(opt_state[key])
+        if found:
+            return found
+    return {}
 
 
 def load_checkpoint(model_dir: str, step: Optional[int] = None) -> Tuple[Any, int]:

@@ -15,8 +15,7 @@ from typing import Any, Dict
 
 
 class Params:
-    """Loads hyperparameters from a JSON file into attributes (read only:
-    the port writes no configs yet)."""
+    """Loads hyperparameters from a JSON file into attributes."""
 
     def __init__(self, json_path: str):
         with open(json_path) as f:
@@ -32,4 +31,11 @@ class Params:
 
     def __repr__(self) -> str:  # pragma: no cover
         return "Params(%s)" % ", ".join(sorted(self.__dict__))
+
+
+class ParamsPlain(Params):
+    """Params filled from keyword arguments (tests and smoke runs)."""
+
+    def __init__(self, **kwargs):
+        self.__dict__.update(kwargs)
 

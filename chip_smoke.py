@@ -34,19 +34,43 @@ Phases, each of which raises on failure:
    training path, as in 7;
 11. hold one card bf16 train step against the port's float32 CPU step from
    the trained state on one fixed pool batch;
-12. extract with ``cli.extract --device-pipe`` from the trained model dir.
+12. extract with ``cli.extract --device-pipe`` from the trained model dir;
+13. train: ``cli.train`` from the streaming loader with the fisher v1
+   recipe config as it is (float32, ``device_decode``, two-pass pooling,
+   16 loader threads), cut to 2 epochs of 16 steps, summaries every 8 steps
+   and a 4-step profile window (the dequant kernel must launch); the first
+   group that reached the card equal byte for byte to one loader worker's
+   first group on the host; the tfevents tags and steps and the Chrome
+   trace; one profiler pass over 8 streamed steps (device idle share, the
+   consumer's wait for the loader); a card float32 step against the CPU's
+   on one streamed batch;
+14. preemption: ``cli.train`` (streaming) in a child process, SIGTERM after
+   its first progress line: exit 75, a checkpoint at a multiple of K, no
+   validation line; ``--cont`` finishes the epoch;
+15. ``cli.make_checkpoint --checkpoint -1`` on the trained pool dir, then
+   ``cli.finetune`` from it (flagship, device pool; two convs and their
+   BatchNorms frozen, the output kernel re-initialized): frozen variables
+   bit-equal to the pretrain checkpoint, re-initialized ones changed, the
+   step restarted, the evaluation before training logged;
+16. ``cli.train_lr_learning --tune_period 2`` at flagship width, then
+   ``cli.tune_lr``: finite sweep lines until the break;
+17. replay the shapes of the streaming, fine-tuning and LR-sweep paths, as
+   in 7.
 
-The line before the last is a JSON object with each kernel's route,
-source, launch count on the main paths, error against its plain version,
-times and bounds at the fixed shapes and over each path's mix; the last
-line is ``{"ok": true, "device": {...}}``.
+Every measurement line names the card and its power limit as nvidia-smi
+gives them. The line before the last is a JSON object with each kernel's
+route, source, launch count on the main paths (and by path), error against
+its plain version, times and bounds at the fixed shapes and over each
+path's mix; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import glob
 import json
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -81,7 +105,8 @@ FLAGSHIP = dict(
 )
 FEAT_DIM = 30
 N_UTTS = 64
-WORK_DIR = os.path.join("build", "chip_smoke")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # cli.train's config: the flagship from the device pool, the voxceleb
 # recipe's learning rate (recipes/voxceleb/v1/nnet_conf), cut to 2 epochs of
 # 16 steps (2 groups of 8 sampled at one bucket length each).
@@ -97,6 +122,29 @@ TRAIN = dict(
     check_numerics=True,
 )
 
+# cli.train from the streaming loader: the fisher v1 recipe config as it is
+# (float32, device_decode, two-pass pooling, 16 loader threads), cut in
+# epochs, steps, summary and profile cadence, and validation batches only.
+FISHER_CONF = os.path.join(ROOT, "recipes", "fisher", "v1", "nnet_conf",
+                           "tdnn_amsoftmax_m0.20_linear_bn_1e-2.json")
+STREAM_CUTS = dict(num_epochs=2, num_steps_per_epoch=16, save_summary_steps=8,
+                   profile_steps=4, valid_max_iterations=2)
+# the preemption round trip: one epoch long enough that SIGTERM lands
+# inside it, with a progress line after every group of 8 steps, and 4
+# loader threads (16 take seconds to yield a first group, PERF.md §6)
+PREEMPT_CUTS = dict(num_epochs=1, num_steps_per_epoch=64, show_training_progress=8,
+                    valid_max_iterations=2, num_parallel_datasets=4)
+# cli.finetune from the trained pool dir: the training config for one
+# epoch; tdnn1/tdnn2's convs frozen with their BatchNorms (substrings match
+# the JAX names, so a conv's name alone leaves its BatchNorm training), the
+# loss head's output kernel re-initialized
+FINETUNE = dict(TRAIN, num_epochs=1,
+                noupdate_var_list=["tdnn/tdnn1_conv", "tdnn/tdnn2_conv",
+                                   "tdnn/tdnn1_bn", "tdnn/tdnn2_bn"],
+                noload_var_list=["softmax/output_kernel"])
+SCALAR_TAGS = ["accuracy", "loss", "penalty_loss", "regularization_loss", "total_loss"]
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main()
+
 
 # Peaks of one H100 SXM for the bounds (from NVIDIA's data sheet): HBM3
 # bytes/s, and float32 FLOP/s outside the tensor
@@ -111,8 +159,9 @@ SOURCES = {
     "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling_bwd.cu",
                                       "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:100"),
 }
-# kernel vs plain: dequant 1 ulp (torch's CUDA division by a scalar
-# multiplies by the reciprocal); pooling f32 one-pass shifted sums against
+# kernel vs plain: dequant within 1e-6 (both round each operation once, so
+# they agree bit for bit; check_dequant also holds the kernel bit for bit
+# against the host codec); pooling f32 one-pass shifted sums against
 # two passes; bf16 one ulp (both round an f32 result)
 DEQ_TOL = dict(atol=1e-6, rtol=1e-6)
 POOL_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=0.0, rtol=2.0 ** -7)}
@@ -565,31 +614,39 @@ def write_corpus(root):
     return train, valid
 
 
-def run_training(torch, root, train, valid):
-    """cli.train from the device pool (the training path). Returns the
-    launches and shapes of the three kernels on this path, and the model
-    dir. The end of each group of 8 steps is timed after a synchronize (one
-    per group, which the trainer does not do itself), as is each epoch's
-    start."""
-    import logging
-
-    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+def kernel_wrappers():
+    """The three kernel wrappers by name; each counts its launches."""
     from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize
     from tf_kaldi_speaker_tpu_torch.ops.pooling import (
         masked_stats_pooling, masked_stats_pooling_backward)
+
+    return {"cm_dequantize": cm_dequantize, "masked_stats_pooling": masked_stats_pooling,
+            "masked_stats_pooling_backward": masked_stats_pooling_backward}
+
+
+def write_json(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def drive(torch, main_fn, argv, capture=None):
+    """Run a CLI's ``main(argv)`` in this process as one main path: every
+    kernel's launch and shape counters set to 0 just before and read just
+    after; log records collected as (logger, message); each epoch's start
+    and each group's end marked after a synchronize, at the entry and the
+    exit of ``_post_group`` (the trainer does not synchronize itself).
+    ``capture`` = (list, n): the first n ``train_step_raw`` inputs are
+    copied to the host into the list."""
+    import logging
+
     from tf_kaldi_speaker_tpu_torch.train import trainer as trainer_mod
 
-    model = os.path.join(root, "trained")
-    cfg_path = os.path.join(root, "train.json")
-    with open(cfg_path, "w") as f:
-        json.dump(TRAIN, f)
-    logged = []
+    logged, marks = [], []  # marks: (kind, step, time)
     handler = logging.Handler()
-    handler.emit = lambda record: logged.append(record.getMessage())
-    trainer_log = logging.getLogger("tfks_torch.trainer")
-    marks = []  # (kind, step, time)
+    handler.emit = lambda record: logged.append((record.name, record.getMessage()))
     Trainer = trainer_mod.Trainer
-    train_fn, post_group = Trainer.train, Trainer._post_group
+    train_fn, post_group, step_raw = Trainer.train, Trainer._post_group, Trainer.train_step_raw
 
     def mark(self, kind):
         torch.cuda.synchronize()
@@ -601,34 +658,84 @@ def run_training(torch, root, train, valid):
 
     def timed_post_group(self, *args, **kw):
         mark(self, "group")
-        return post_group(self, *args, **kw)
+        try:
+            return post_group(self, *args, **kw)
+        finally:
+            mark(self, "posted")
 
-    wrappers = {"cm_dequantize": cm_dequantize, "masked_stats_pooling": masked_stats_pooling,
-                "masked_stats_pooling_backward": masked_stats_pooling_backward}
+    def captured_step_raw(self, codes, headers, labels, lr):
+        if len(capture[0]) < capture[1]:
+            capture[0].append(tuple(t.cpu().numpy() for t in (codes, headers, labels)))
+        return step_raw(self, codes, headers, labels, lr)
+
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
         fn.shapes.clear()
     Trainer.train, Trainer._post_group = timed_train, timed_post_group
-    trainer_log.addHandler(handler)
+    if capture is not None:
+        Trainer.train_step_raw = captured_step_raw
+    logging.getLogger().addHandler(handler)
     try:
         t0 = time.perf_counter()
-        rc = cli_train.main(["--config", cfg_path, "--device", "cuda", train["data"],
-                             train["spklist"], valid["data"], valid["spklist"], model])
+        rc = main_fn(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         Trainer.train, Trainer._post_group = train_fn, post_group
-        trainer_log.removeHandler(handler)
+        Trainer.train_step_raw = step_raw
+        logging.getLogger().removeHandler(handler)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     shapes = {name: collections.Counter(fn.shapes) for name, fn in wrappers.items()}
-    if rc != 0:
-        raise RuntimeError("cli.train exited %d" % rc)
-    print("training path (cli.train, device pool, bf16) launches: %s" % json.dumps(launches))
-    for name, n in launches.items():
+    return dict(rc=rc, launches=launches, shapes=shapes, logged=logged, marks=marks, wall=wall)
+
+
+def check_launched(path, run, names):
+    """Each kernel of ``names`` launched on the path, every launch counted
+    once by shape; returns the path's launches of every kernel."""
+    launches, shapes = run["launches"], run["shapes"]
+    print("%s launches: %s" % (path, json.dumps(launches)))
+    for name in names:
+        n = launches[name]
         if n <= 0 or sum(shapes[name].values()) != n:
-            raise AssertionError("the training path launched %s %d times at shapes %s"
-                                 % (name, n, dict(shapes[name])))
-    losses = [float(m.split("loss ")[1].split()[0]) for m in logged if " loss " in m]
+            raise AssertionError("the %s path launched %s %d times at shapes %s"
+                                 % (path, name, n, dict(shapes[name])))
+    return launches
+
+
+def group_times(marks, n):
+    """The second epoch (steps n..2n) from the marks: each group's time
+    from the end of the previous one's bookkeeping (the epoch's start for
+    the first) to its own end, and the time from the epoch's start to its
+    last group's end (the bookkeeping between groups is in it, the last
+    group's and the epoch's end are not)."""
+    epoch2 = [(kind, t) for kind, step, t in marks
+              if (kind, step) == ("start", n) or (kind != "start" and step > n)]
+    groups, prev = [], None
+    for kind, t in epoch2:
+        if kind == "group":
+            groups.append(t - prev)
+            last = t
+        prev = t
+    return groups, last - epoch2[0][1]
+
+
+def run_training(torch, root, train, valid):
+    """cli.train from the device pool (the training path). Returns the
+    launches and shapes of the three kernels on this path, the model dir
+    and the second epoch's step time."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    model = os.path.join(root, "trained")
+    cfg_path = write_json(os.path.join(root, "train.json"), TRAIN)
+    run = drive(torch, cli_train.main, ["--config", cfg_path, "--device", "cuda", train["data"],
+                                        train["spklist"], valid["data"], valid["spklist"], model])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train exited %d" % run["rc"])
+    launches = check_launched("training path (cli.train, device pool, bf16)", run,
+                              kernel_wrappers())
+    losses = [float(m.split("loss ")[1].split()[0]) for name, m in run["logged"]
+              if name == "tfks_torch.trainer" and " loss " in m]
     steps = TRAIN["num_epochs"] * TRAIN["num_steps_per_epoch"]
     if len(losses) != steps // TRAIN["steps_per_dispatch"] or not np.all(np.isfinite(losses)):
         raise AssertionError("logged losses %s (expected %d finite)" % (
@@ -636,18 +743,401 @@ def run_training(torch, root, train, valid):
     with open(os.path.join(model, "nnet", "valid_loss")) as f:
         valid_lines = f.read().split()
     print("logged group losses %s; valid_loss file %s" % (losses, valid_lines))
-    # the second epoch: its start mark, then the end of each of its groups
     k, n = TRAIN["steps_per_dispatch"], TRAIN["num_steps_per_epoch"]
-    epoch2 = [t for kind, step, t in marks
-              if (kind, step) == ("start", n) or (kind == "group" and step > n)]
-    groups = np.diff(epoch2)
+    groups, epoch_s = group_times(run["marks"], n)
     step_ms = 1e3 * float(np.median(groups)) / k
-    rate = n * TRAIN["num_speakers_per_batch"] / (epoch2[-1] - epoch2[0])
-    print("train step, second epoch (%d groups of %d steps, bf16, batch %d x 200-400 frames): "
-          "median %.3f ms per step (group times %s s), %.1f chunks/s; whole cli.train run "
-          "%.2f s" % (len(groups), k, TRAIN["num_speakers_per_batch"], step_ms,
-                      ["%.4f" % g for g in groups], rate, wall))
-    return launches, shapes, model, dict(step_ms=step_ms, chunks_per_s=rate)
+    rate = n * TRAIN["num_speakers_per_batch"] / epoch_s
+    print("train step (%s), second epoch (%d groups of %d steps, bf16, batch %d x 200-400 "
+          "frames): median %.3f ms per step (group times %s s), %.1f chunks/s; whole cli.train "
+          "run %.2f s" % (CARD, len(groups), k, TRAIN["num_speakers_per_batch"], step_ms,
+                          ["%.4f" % g for g in groups], rate, run["wall"]))
+    return launches, run["shapes"], model, dict(step_ms=step_ms, chunks_per_s=rate)
+
+
+def stream_config():
+    """The fisher v1 recipe config with STREAM_CUTS."""
+    with open(FISHER_CONF) as f:
+        return dict(json.load(f), **STREAM_CUTS)
+
+
+def first_loader_group(train, cfg, K, worker):
+    """The first group that one loader worker yields: the trainer's loader
+    (seed + epoch-start step 0) with that worker's seed and one thread."""
+    from tf_kaldi_speaker_tpu_torch.data import KaldiDataRandomQueue
+
+    q = KaldiDataRandomQueue(
+        train["data"], train["spklist"], num_parallel=1, max_qsize=1,
+        num_speakers=int(cfg.get("num_speakers_per_batch", 64)),
+        num_segments=int(cfg.get("num_segments_per_speaker", 1)),
+        min_len=int(cfg.get("min_segment_len", 200)), max_len=int(cfg.get("max_segment_len", 400)),
+        seed=int(cfg.get("seed", 0)) + worker, num_buckets=int(cfg.get("num_buckets", 8)),
+        raw_codes=True, group=K).start()
+    try:
+        return q.fetch()
+    finally:
+        q.stop()
+
+
+def find_worker_group(train, cfg, K, first):
+    """The worker whose first group equals, byte for byte, the K batches
+    ``first`` (codes, headers, labels as they reached the card), and the
+    mean time one worker alone took to yield its first group."""
+    got = tuple(np.stack([b[i] for b in first]) for i in range(3))
+    times = []
+    for worker in range(int(cfg.get("num_parallel_datasets", 4))):
+        t0 = time.perf_counter()
+        want = first_loader_group(train, cfg, K, worker)
+        times.append(time.perf_counter() - t0)
+        if all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)):
+            return worker, float(np.mean(times))
+    raise AssertionError("the first group on the card is no loader worker's first group")
+
+
+def check_summaries(nnet, steps):
+    """The summaries of a run: every tfevents file read back with the port's
+    reader and the JSONL log hold the JAX step's scalar tags at ``steps``."""
+    from tf_kaldi_speaker_tpu_torch.utils.summary import load_scalars
+    from tf_kaldi_speaker_tpu_torch.utils.tb_events import read_tfevents
+
+    files = sorted(glob.glob(os.path.join(nnet, "events.out.tfevents.*")))
+    scalars = {}
+    for path in files:
+        for tag, values in read_tfevents(path).items():
+            scalars.setdefault(tag, []).extend(values)
+    jsonl = load_scalars(os.path.join(nnet, "events.jsonl"))
+    for name, got in (("tfevents", scalars), ("events.jsonl", jsonl)):
+        if sorted(got) != SCALAR_TAGS:
+            raise AssertionError("%s tags %s, not %s" % (name, sorted(got), SCALAR_TAGS))
+        for tag, values in got.items():
+            if sorted(s for s, _ in values) != steps or not np.all(np.isfinite(
+                    [v for _, v in values])):
+                raise AssertionError("%s %s: %s, not finite values at steps %s"
+                                     % (name, tag, values, steps))
+    return len(files)
+
+
+def run_stream_training(torch, root, train, valid):
+    """cli.train from the streaming loader with the fisher v1 config (the
+    third main path). Returns the run, the model dir and the second epoch's
+    step time."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    cfg = stream_config()
+    K = int(cfg.get("steps_per_dispatch", 8))  # the trainer's default
+    n = cfg["num_steps_per_epoch"]
+    model = os.path.join(root, "stream")
+    cfg_path = write_json(os.path.join(root, "stream.json"), cfg)
+    first = []
+    run = drive(torch, cli_train.main,
+                ["--config", cfg_path, "--device", "cuda", train["data"], train["spklist"],
+                 valid["data"], valid["spklist"], model], capture=(first, K))
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train (streaming) exited %d" % run["rc"])
+    check_launched("streaming path (cli.train, fisher v1 config: float32, device_decode, "
+                   "two-pass pooling)", run, ["cm_dequantize"])
+    print("  dequant shapes on the path: %s" % sorted(
+        ("x".join(map(str, shape)), count)
+        for (shape, _), count in run["shapes"]["cm_dequantize"].items()))
+    nnet = os.path.join(model, "nnet")
+    with open(os.path.join(nnet, "valid_loss")) as f:
+        valid_lines = f.read().split("\n")[:-1]
+    if len(valid_lines) != cfg["num_epochs"]:
+        raise AssertionError("valid_loss %s" % valid_lines)
+    groups, epoch_s = group_times(run["marks"], n)
+    step_ms = 1e3 * float(np.median(groups)) / K
+    rate = n * cfg["num_speakers_per_batch"] / epoch_s
+    print("streamed train step (%s), second epoch (%d groups of %d steps, float32, %d loader "
+          "threads, batch %d x 200-400 frames of codes): median %.3f ms per step (group times "
+          "%s s), %.1f chunks/s from the epoch's start, loader start-up included; whole "
+          "cli.train run %.2f s"
+          % (CARD, len(groups), K, cfg["num_parallel_datasets"], cfg["num_speakers_per_batch"],
+             step_ms, ["%.4f" % g for g in groups], rate, run["wall"]))
+    firsts = [t_group - t_start for (k0, _, t_start), (k1, _, t_group)
+              in zip(run["marks"], run["marks"][1:]) if (k0, k1) == ("start", "group")]
+    worker, alone_s = find_worker_group(train, cfg, K, first)
+    print("first group on the card (%d batches of codes, headers, labels) == loader worker %d's "
+          "first group on the host with one thread, byte for byte ok" % (K, worker))
+    print("loader start-up (%s): each epoch's first group reached the end of its steps %s s "
+          "after the epoch's start with %d threads; one worker alone yields its first group in "
+          "%.3f s" % (CARD, ["%.3f" % t for t in firsts], cfg["num_parallel_datasets"], alone_s))
+    nfiles = check_summaries(nnet, [8, 16, 24, 32])
+    traces = glob.glob(os.path.join(nnet, "profile", "*.pt.trace.json"))
+    if not traces:
+        raise AssertionError("no Chrome trace under %s/profile" % nnet)
+    print("summaries: %d tfevents file(s) read back with the port's reader, tags %s at steps "
+          "8, 16, 24, 32 ok; %d Chrome trace(s) under nnet/profile ok"
+          % (nfiles, SCALAR_TAGS, len(traces)))
+    return run, model, dict(stream_step_ms=step_ms, stream_chunks_per_s=rate,
+                            stream_group_s=groups, stream_first_group_s=firsts,
+                            loader_one_worker_group_s=alone_s)
+
+
+def device_busy(torch, prof):
+    """The device's busy seconds (the union of its kernels' spans) under a
+    torch.profiler run, its event count, and device time by kernel name."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    return 1e-6 * busy_us(spans), len(kernels), by_name
+
+
+def busy_us(spans):
+    """Length of the union of (start, end) spans."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def print_top(by_name, busy_s, top=12):
+    for name, us in by_name.most_common(top):
+        print("  %5.1f%%  %8.3f ms  %s" % (1e-4 * us / busy_s, us * 1e-3, name[:110]))
+
+
+def profile_stream_group(torch, model, train):
+    """One torch.profiler pass over a group of 8 float32 steps fed by the
+    streaming loader (16 threads, raw codes, device_prefetch), after one
+    group of warm-up: the device's busy and idle share. Then 3 groups
+    timed without the profiler, each after a synchronize: the consumer's
+    wait for the loader against the group's time, and the same 8 steps
+    on a group already on the card (no loader)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tf_kaldi_speaker_tpu_torch.data import KaldiDataRandomQueue, device_prefetch
+
+    t = _trainer_at(torch, model, "cuda", "float32")
+    cfg = t.params.dict
+    K, lr = 8, float(cfg["learning_rate"])
+    loader = KaldiDataRandomQueue(
+        train["data"], train["spklist"], num_parallel=int(cfg["num_parallel_datasets"]),
+        max_qsize=int(cfg["max_queue_size"]), num_speakers=int(cfg["num_speakers_per_batch"]),
+        min_len=int(cfg["min_segment_len"]), max_len=int(cfg["max_segment_len"]), seed=11,
+        raw_codes=True, group=K).start()
+    stream = device_prefetch(iter(loader), "cuda")
+
+    def steps(batch):
+        for k in range(K):
+            t.train_step_raw(batch[0][k], batch[1][k], batch[2][k], lr)
+
+    try:
+        steps(next(stream))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            batch = next(stream)
+            steps(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        waits, totals = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch = next(stream)
+            t1 = time.perf_counter()
+            steps(batch)
+            torch.cuda.synchronize()
+            waits.append(t1 - t0)
+            totals.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        steps(batch)
+        torch.cuda.synchronize()
+        fixed = time.perf_counter() - t0
+    finally:
+        stream.close()
+        loader.stop()
+    busy_s, n_events, by_name = device_busy(torch, prof)
+    if not n_events:
+        print("profile: no device events in the trace; device idle share not measured")
+        return None
+    print("profile (%s), 8 float32 streamed steps [64, L, 30] codes under torch.profiler: wall "
+          "%.4f s, device busy %.4f s, device idle %.1f%%, %d device events"
+          % (CARD, wall, busy_s, 100 * (1 - busy_s / wall), n_events))
+    print_top(by_name, busy_s)
+    print("streamed groups of 8 steps (%s), each after a synchronize: wait for the loader %s s "
+          "of group times %s s; the same 8 steps on a group already on the card %.4f s"
+          % (CARD, ["%.4f" % w for w in waits], ["%.4f" % w for w in totals], fixed))
+    return dict(stream_profile_wall_s=wall, stream_profile_busy_s=busy_s,
+                stream_device_idle=1 - busy_s / wall, stream_loader_wait_s=waits,
+                stream_synced_group_s=totals, stream_group_on_card_s=fixed)
+
+
+def check_stream_step_against_cpu(torch, model, train):
+    """One float32 train step on the card (TF32 off) against the port's
+    float32 CPU step, both from the streamed run's final state, on one
+    streamed batch of raw codes: loss within a relative 1e-3."""
+    from tf_kaldi_speaker_tpu_torch.data import KaldiDataRandomQueue
+
+    gpu = _trainer_at(torch, model, "cuda", "float32")
+    cpu = _trainer_at(torch, model, "cpu", "float32")
+    cfg = gpu.params.dict
+    q = KaldiDataRandomQueue(train["data"], train["spklist"], num_parallel=1, max_qsize=1,
+                             num_speakers=int(cfg["num_speakers_per_batch"]), seed=13,
+                             raw_codes=True).start()
+    try:
+        codes, headers, labels = (torch.from_numpy(a) for a in q.fetch())
+    finally:
+        q.stop()
+    lr = float(cfg["learning_rate"])
+    loss_gpu = float(gpu.train_step_raw(codes.cuda(), headers.cuda(), labels.cuda(), lr)["loss"])
+    loss_cpu = float(cpu.train_step_raw(codes, headers, labels, lr)["loss"])
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if not (np.isfinite(loss_gpu) and rel < 1e-3):
+        raise AssertionError("card float32 loss %.6f vs CPU float32 %.6f (rel %.3g >= 1e-3)"
+                             % (loss_gpu, loss_cpu, rel))
+    print("one streamed train step %s, card float32 (TF32 off) vs CPU float32 from the streamed "
+          "run's state: loss %.6f vs %.6f, gap %.3g relative (< 1e-3) ok"
+          % (list(codes.shape), loss_gpu, loss_cpu, rel))
+    return rel
+
+
+def run_preemption(root, train, valid):
+    """cli.train (streaming, fisher v1 config with PREEMPT_CUTS) in a child
+    process: SIGTERM after its first progress line must give exit 75, a
+    checkpoint at a multiple of K = 8 and no valid_loss line; ``--cont``
+    must then finish the epoch (exit 0, checkpoint at num_steps_per_epoch,
+    one validation line)."""
+    from tf_kaldi_speaker_tpu_torch.train.checkpoints import read_pointer
+    from tf_kaldi_speaker_tpu_torch.utils.bookkeeping import load_valid_loss
+
+    with open(FISHER_CONF) as f:
+        cfg = dict(json.load(f), **PREEMPT_CUTS)
+    n = cfg["num_steps_per_epoch"]
+    model = os.path.join(root, "preempt")
+    nnet = os.path.join(model, "nnet")
+    cfg_path = write_json(os.path.join(root, "preempt.json"), cfg)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "tf_kaldi_speaker_tpu_torch.cli.train", "--device", "cuda"]
+    args = [train["data"], train["spklist"], valid["data"], valid["spklist"], model]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["--config", cfg_path] + args, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if "step " in line and ": loss" in line:
+                break
+        else:
+            raise RuntimeError("cli.train exited before a progress line:\n" + "".join(lines))
+        seen = int(line.split("step ")[1].split(":")[0])
+        proc.send_signal(signal.SIGTERM)
+        t_sig = time.perf_counter()
+        lines.extend(proc.stdout)
+        rc = proc.wait(timeout=300)
+        t_exit = time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tail = "".join(lines[-30:])
+    step = read_pointer(nnet)
+    if rc != 75 or "preempted: checkpoint saved at step" not in tail:
+        raise AssertionError("SIGTERM: exit %d, not 75:\n%s" % (rc, tail))
+    if step is None or not 0 < step < n or step % 8:
+        raise AssertionError("SIGTERM: checkpoint at step %s, not a multiple of 8 in (0, %d)"
+                             % (step, n))
+    if load_valid_loss(os.path.join(nnet, "valid_loss")):
+        raise AssertionError("the cut epoch recorded a validation")
+    cont = subprocess.run(cmd + ["--cont"] + args, cwd=ROOT, env=env, text=True, timeout=600,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    wall = time.perf_counter() - t0
+    valid = load_valid_loss(os.path.join(nnet, "valid_loss"))
+    if cont.returncode != 0 or read_pointer(nnet) != n or len(valid) != 1:
+        raise AssertionError("--cont: exit %d, checkpoint %s, valid_loss %s, not 0, %d and one "
+                             "line:\n%s" % (cont.returncode, read_pointer(nnet), valid, n,
+                                            cont.stdout[-3000:]))
+    print("preemption (%s): SIGTERM to cli.train after its progress line at step %d -> exit 75 "
+          "%.2f s later with model-%d (a multiple of K = 8) and no valid_loss line; --cont -> "
+          "exit 0 at step %d with one valid_loss line; round trip %.1f s in two processes ok"
+          % (CARD, seen, t_exit - t_sig, step, n, wall))
+    return dict(preempt_seen_step=seen, preempt_step=step, preempt_exit_s=t_exit - t_sig)
+
+
+def _frozen(path, subs):
+    return path[0] in ("params", "batch_stats") and any(s in "/".join(path[1:]) for s in subs)
+
+
+def run_finetune(torch, root, trained, train, valid):
+    """cli.make_checkpoint --checkpoint -1 on the trained pool dir, then
+    cli.finetune from it (the fourth main path). Returns the run."""
+    from tf_kaldi_speaker_tpu_torch.cli import finetune as cli_finetune
+    from tf_kaldi_speaker_tpu_torch.cli import make_checkpoint as cli_make_checkpoint
+    from tf_kaldi_speaker_tpu_torch.convert import flatten
+    from tf_kaldi_speaker_tpu_torch.train.checkpoints import load_checkpoint, read_pointer
+
+    pre_nnet = os.path.join(trained, "nnet")
+    if cli_make_checkpoint.main(["--checkpoint", "-1", trained]) != 0:
+        raise RuntimeError("cli.make_checkpoint failed")
+    best = read_pointer(pre_nnet)
+    ft = os.path.join(root, "finetune")
+    cfg_path = write_json(os.path.join(root, "finetune.json"), FINETUNE)
+    run = drive(torch, cli_finetune.main,
+                ["--config", cfg_path, "--device", "cuda", "--pretrain_model", trained,
+                 train["data"], train["spklist"], valid["data"], valid["spklist"], ft])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.finetune exited %d" % run["rc"])
+    check_launched("fine-tuning path (cli.finetune, device pool, bf16)", run, kernel_wrappers())
+    before = [m for _, m in run["logged"] if m.startswith("BEFORE training: valid loss")]
+    if not before:
+        raise AssertionError("no 'BEFORE training' validation was logged")
+    nnet = os.path.join(ft, "nnet")
+    pre = flatten(load_checkpoint(pre_nnet, best)[0])
+    start, _ = load_checkpoint(nnet, 0)
+    final, final_step = load_checkpoint(nnet)
+    if int(start["step"]) != 0 or final_step != FINETUNE["num_steps_per_epoch"]:
+        raise AssertionError("fine-tuning started at step %s and ended at %d, not 0 and %d"
+                             % (start["step"], final_step, FINETUNE["num_steps_per_epoch"]))
+    final = flatten(final)
+    frozen = [p for p in final if _frozen(p, FINETUNE["noupdate_var_list"])]
+    for path in frozen:
+        if not torch.equal(final[path], pre[path]):
+            raise AssertionError("frozen %s changed" % "/".join(path))
+    reinit = [p for p in final if _frozen(p, FINETUNE["noload_var_list"])]
+    moved = ("params", "network", "tdnn", "tdnn3_conv", "kernel")
+    for path in reinit + [moved]:
+        if torch.equal(final[path], pre[path]):
+            raise AssertionError("%s did not change" % "/".join(path))
+    print("fine-tuning (%s): cli.make_checkpoint -1 -> model-%d; %s; %d frozen variables (two "
+          "convs, two BatchNorms with their statistics) bit-equal to the pretrain checkpoint, "
+          "re-initialized %s changed, tdnn3_conv moved; steps 0 -> %d; whole cli.finetune run "
+          "%.2f s ok" % (CARD, best, before[0], len(frozen), ["/".join(p[1:]) for p in reinit],
+                         final_step, run["wall"]))
+    return run
+
+
+def run_tune_lr(torch, root, train):
+    """cli.train_lr_learning --tune_period 2 at flagship width from the
+    streaming loader (the fifth main path), then cli.tune_lr. Returns the
+    run."""
+    from tf_kaldi_speaker_tpu_torch.cli import train_lr_learning as cli_lr
+    from tf_kaldi_speaker_tpu_torch.cli import tune_lr as cli_tune_lr
+
+    model = os.path.join(root, "tune_lr")
+    cfg_path = write_json(os.path.join(root, "tune_lr.json"), FLAGSHIP)
+    run = drive(torch, cli_lr.main, ["--config", cfg_path, "--tune_period", "2", "--device",
+                                     "cuda", train["data"], train["spklist"], model])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train_lr_learning exited %d" % run["rc"])
+    check_launched("LR-sweep path (cli.train_lr_learning, streaming loader, bf16)", run,
+                   ["masked_stats_pooling", "masked_stats_pooling_backward"])
+    rows = np.loadtxt(os.path.join(model, "learning_rate_tuning"), ndmin=2)
+    ks, lrs, losses = rows[:, 0], rows[:, 1], rows[:, 2]
+    broke = not np.isfinite(losses[-1]) or losses[-1] > 1e4
+    if (not np.array_equal(ks, np.arange(len(rows))) or not np.isfinite(losses[:-1]).all()
+            or (len(rows) < 100 and not broke)):
+        raise AssertionError("learning_rate_tuning rows %s" % rows.tolist())
+    if cli_tune_lr.main([model]) != 0:
+        raise RuntimeError("cli.tune_lr failed")
+    print("LR sweep (%s): %d sweeps of 2 steps, lr %.2e .. %.2e, loss finite%s; lowest loss "
+          "%.4f at lr %.2e; whole cli.train_lr_learning run %.2f s ok"
+          % (CARD, len(rows), lrs[0], lrs[-1],
+             " until the break at k = %d (loss %s)" % (ks[-1], losses[-1]) if broke else "",
+             np.nanmin(losses), lrs[int(np.nanargmin(losses))], run["wall"]))
+    return run
 
 
 def _trainer_at(torch, model, device, compute_dtype):
@@ -698,25 +1188,14 @@ def profile_train_group(torch, model, train):
             t.train_step_raw(codes, hdr, lab, TRAIN["learning_rate"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    busy_s, n_events, by_name = device_busy(torch, prof)
+    if not n_events:
         print("profile: no device events in the trace; device idle share not measured")
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.end - e.time_range.start
-    busy_s = busy * 1e-6
-    print("profile, 8 bf16 train steps [64, 296, 30] from the pool under torch.profiler: "
+    print("profile (%s), 8 bf16 train steps [64, 296, 30] from the pool under torch.profiler: "
           "wall %.4f s, device busy %.4f s, device idle %.1f%%, %d device events"
-          % (wall, busy_s, 100 * (1 - busy_s / wall), len(kernels)))
-    for name, us in by_name.most_common(12):
-        print("  %5.1f%%  %8.3f ms  %s" % (100 * us / busy, us * 1e-3, name[:110]))
+          % (CARD, wall, busy_s, 100 * (1 - busy_s / wall), n_events))
+    print_top(by_name, busy_s)
     return dict(profile_wall_s=wall, profile_busy_s=busy_s, device_idle=1 - busy_s / wall)
 
 
@@ -776,17 +1255,23 @@ def extract_trained(model, scp, root):
 
 
 def main():
+    import logging
+
     import torch
 
+    global CARD
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs the port on a GPU")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()
-    print(smi[0])
+    CARD = smi[0]
+    print(CARD)
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     from tf_kaldi_speaker_tpu_torch.ops import _build
 
@@ -820,20 +1305,37 @@ def main():
         torch, WORK_DIR, train, valid)
     profile = profile_train_group(torch, trained, train)
     replay_mix(torch, train_shapes, rows, flush, prefix="train_mix_")
-    del flush
     check_step_against_cpu(torch, trained, train)
     extract_trained(trained, scp, WORK_DIR)
-    smi_line = smi[0]
-    print("training summary (%s): %s" % (smi_line, json.dumps(dict(step_time, **(profile or {})))))
+    print("training summary (%s): %s" % (CARD, json.dumps(dict(step_time, **(profile or {})))))
+
+    stream, streamed, stream_time = run_stream_training(torch, WORK_DIR, train, valid)
+    stream_profile = profile_stream_group(torch, streamed, train)
+    gap = check_stream_step_against_cpu(torch, streamed, train)
+    preempt = run_preemption(WORK_DIR, train, valid)
+    finetune = run_finetune(torch, WORK_DIR, trained, train, valid)
+    tune = run_tune_lr(torch, WORK_DIR, train)
+    paths = {"extract": launches, "train": train_launches, "train_stream": stream["launches"],
+             "finetune": finetune["launches"], "tune_lr": tune["launches"]}
+    for prefix, run in (("stream_mix_", stream), ("finetune_mix_", finetune),
+                        ("tune_lr_mix_", tune)):
+        replay_mix(torch, {k: v for k, v in run["shapes"].items() if v}, rows, flush,
+                   prefix=prefix)
+    del flush
+    print("streaming, preemption, fine-tuning and LR-sweep summary (%s): %s" % (CARD, json.dumps(
+        dict(stream_time, **(stream_profile or {}), stream_cpu_loss_gap=gap, **preempt,
+             finetune_wall_s=finetune["wall"], tune_lr_wall_s=tune["wall"]))))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []
     for name, (src, rep) in SOURCES.items():
-        by_path = {"extract": launches.get(name, 0), "train": train_launches[name]}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=sum(by_path.values()), launches_by_path=by_path, library_ms=None,
             **{k: v for k, v in rows[name].items() if v is not None}))
+    print("chip_smoke: every phase passed in %.1f s of command time (%s)"
+          % (time.perf_counter() - t_start, CARD))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

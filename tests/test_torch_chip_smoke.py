@@ -1,8 +1,10 @@
-"""chip_smoke.py without a card: its bound arithmetic, and that it exits
-non-zero and prints no result where CUDA is not available, both from the
-repository and alone in an empty directory."""
+"""chip_smoke.py without a card: its bound arithmetic, its configurations,
+the helpers of its streaming, fine-tuning and profiling phases, and that it
+exits non-zero and prints no result where CUDA is not available, both from
+the repository and alone in an empty directory."""
 
 import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -82,3 +84,80 @@ def test_training_config_is_the_flagship():
                          num_epochs=2, learning_rate=0.01, valid_max_iterations=2,
                          show_training_progress=8, check_numerics=True)
     assert cs.FLAGSHIP["compute_dtype"] == "bfloat16" and cs.FLAGSHIP["use_fused_pooling"]
+
+
+def test_stream_config_is_the_fisher_recipe():
+    """The streaming phase runs the fisher v1 recipe config as it is, cut
+    only in epochs, steps, summary and profile cadence and validation
+    batches; the preemption phase cuts it in epochs, steps, progress,
+    validation batches and loader threads only."""
+    cs = _chip_smoke()
+    with open(cs.FISHER_CONF) as f:
+        fisher = json.load(f)
+    cfg = cs.stream_config()
+    assert {k: v for k, v in cfg.items() if k not in cs.STREAM_CUTS} == \
+        {k: v for k, v in fisher.items() if k not in cs.STREAM_CUTS}
+    assert cs.STREAM_CUTS == dict(num_epochs=2, num_steps_per_epoch=16, save_summary_steps=8,
+                                  profile_steps=4, valid_max_iterations=2)
+    assert set(cs.PREEMPT_CUTS) == {"num_epochs", "num_steps_per_epoch", "num_parallel_datasets",
+                                    "show_training_progress", "valid_max_iterations"}
+    assert cfg["device_decode"] and not cfg["use_fused_pooling"]
+    assert cfg["num_parallel_datasets"] == 16 and "compute_dtype" not in cfg
+
+
+def test_finetune_config():
+    """Fine-tuning runs the training config for one epoch with the convs
+    of tdnn1 and tdnn2 (and their BatchNorms) frozen and the output kernel
+    re-initialized; the matcher reads JAX paths without the collection."""
+    cs = _chip_smoke()
+    assert {k: v for k, v in cs.FINETUNE.items()
+            if k not in ("num_epochs", "noupdate_var_list", "noload_var_list")} == \
+        {k: v for k, v in cs.TRAIN.items() if k != "num_epochs"}
+    assert cs.FINETUNE["num_epochs"] == 1
+    assert {"tdnn/tdnn1_conv", "tdnn/tdnn2_conv"} <= set(cs.FINETUNE["noupdate_var_list"])
+    assert cs.FINETUNE["noload_var_list"] == ["softmax/output_kernel"]
+    subs = cs.FINETUNE["noupdate_var_list"]
+    assert cs._frozen(("batch_stats", "network", "tdnn", "tdnn1_bn", "mean"), subs)
+    assert cs._frozen(("params", "network", "tdnn", "tdnn2_conv", "kernel"), subs)
+    assert not cs._frozen(("params", "network", "tdnn", "tdnn3_conv", "kernel"), subs)
+    assert not cs._frozen(("opt_state", "trace", "network", "tdnn", "tdnn1_conv", "kernel"),
+                          subs)
+
+
+def test_busy_and_group_times():
+    cs = _chip_smoke()
+    assert cs.busy_us([]) == 0.0
+    assert cs.busy_us([(5, 7), (0, 2), (1, 3), (6, 6.5), (10, 11)]) == 3 + 2 + 1
+    marks = [("start", 0, 0.0), ("group", 8, 1.0), ("posted", 8, 1.5), ("group", 16, 2.0),
+             ("posted", 16, 2.1), ("start", 16, 3.0), ("group", 24, 3.5), ("posted", 24, 4.0),
+             ("group", 32, 4.25), ("posted", 32, 4.5)]
+    groups, epoch_s = cs.group_times(marks, 16)
+    assert groups == [0.5, 0.25] and epoch_s == 1.25
+
+
+def test_find_worker_group_and_summaries(tmp_path):
+    """The first loader group of a worker is found among the workers and a
+    changed byte is not; summaries with the JAX tags at the given steps
+    pass the check and a missing step does not."""
+    from tf_kaldi_speaker_tpu_torch.utils.summary import SummaryWriter
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    d = make_fake_data_dir(str(tmp_path / "cm"), num_speakers=6, utts_per_speaker=2, dim=5,
+                           min_len=60, max_len=90, seed=1)
+    cfg = dict(seed=4, num_parallel_datasets=3, num_speakers_per_batch=3, min_segment_len=40,
+               max_segment_len=56)
+    codes, headers, labels = cs.first_loader_group(d, cfg, 2, 2)
+    first = [(codes[k], headers[k], labels[k]) for k in range(2)]
+    worker, alone_s = cs.find_worker_group(d, cfg, 2, first)
+    assert worker == 2 and alone_s > 0
+    first[1][0][0, 0, 0] ^= 1
+    with pytest.raises(AssertionError, match="no loader worker"):
+        cs.find_worker_group(d, cfg, 2, first)
+    w = SummaryWriter(str(tmp_path / "nnet"))
+    for step in (8, 16):
+        w.scalars(step, {tag: 0.5 for tag in cs.SCALAR_TAGS})
+    w.close()
+    assert cs.check_summaries(str(tmp_path / "nnet"), [8, 16]) == 1
+    with pytest.raises(AssertionError, match="at steps"):
+        cs.check_summaries(str(tmp_path / "nnet"), [8, 16, 24])

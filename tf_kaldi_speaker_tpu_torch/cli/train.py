@@ -4,10 +4,11 @@ Counterpart of ``tf_kaldi_speaker_tpu/cli/train.py`` (reference
 egs/voxceleb/v1/nnet/lib/train.py): the epoch loop, the learning-rate file
 or validation-driven halving (:108-120), early stop (:133-139), ``--cont``,
 and the model-dir bookkeeping files. Epochs are 1-based, so checkpoint step
-= epoch * num_steps_per_epoch. The port trains from the device pool only
-(``device_pool: true`` in the config). The JAX package's preemption handler
-(graceful stop on SIGTERM, exit 75) is not ported yet (ROADMAP.md §1 item
-10): a killed run resumes from its last checkpoint with ``--cont``.
+= epoch * num_steps_per_epoch. Batches come from the streaming loader or,
+with ``device_pool: true``, from the device pool. On SIGTERM the epoch stops
+at the next group boundary with a checkpoint at the step reached and the
+CLI exits 75 (``train/preemption.py``); a validation pass that a SIGTERM
+cut is not recorded. ``--cont`` resumes the remainder of the epoch.
 
 Usage:
     python -m tf_kaldi_speaker_tpu_torch.cli.train [--cont] [--config conf.json] \\
@@ -23,6 +24,7 @@ import sys
 
 from ..backend.metrics import compute_cos_pairwise_eer
 from ..kio import FeatureReader
+from ..train.preemption import exit_code_if_preempted, install_preemption_handler
 from ..train.trainer import Trainer
 from ..utils import bookkeeping as bk
 
@@ -54,6 +56,7 @@ def main(argv=None) -> int:
     trainer = Trainer(params, nnet_dir, dim=dim, num_speakers=num_speakers, device=args.device)
     trainer.build("train", dim, params.loss_func, num_speakers)
     trainer.build("valid", dim, params.loss_func, num_speakers)
+    install_preemption_handler(trainer)
 
     start_epoch = 0
     if args.cont:
@@ -88,10 +91,19 @@ def main(argv=None) -> int:
                 learning_rate = lr_schedule[epoch]
             bk.append_lr(lr_path, epoch, learning_rate)
             trainer.train(args.train_dir, args.train_spklist, learning_rate)
+            rc = exit_code_if_preempted(trainer)
+            if rc is not None:
+                return rc
             valid_loss, embeddings, labels = trainer.valid(
                 args.valid_dir, args.valid_spklist,
                 batch_type=batch_type, output_embeddings=True,
             )
+            rc = exit_code_if_preempted(trainer)
+            if rc is not None:
+                # SIGTERM landed during validation: the pass is partial, so do
+                # not record it (a truncated loss would poison LR halving on
+                # resume); the epoch checkpoint was already saved by train().
+                return rc
             eer = compute_cos_pairwise_eer(embeddings, labels) if len(labels) else 1.0
             logging.info("epoch %d: valid loss %f eer %.4f lr %g",
                          epoch, valid_loss, eer, learning_rate)

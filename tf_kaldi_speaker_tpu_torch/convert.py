@@ -42,6 +42,15 @@ def jax_path(name: str) -> Tuple[str, ...]:
     return (collection, *modules, "kernel" if leaf == "weight" else leaf)
 
 
+def jax_name(name: str) -> str:
+    """The JAX package's name of a module tensor, its path without the
+    collection: 'network.tdnn.tdnn1_conv.weight' ->
+    'network/tdnn/tdnn1_conv/kernel', 'network.tdnn.tdnn1_bn.mean' ->
+    'network/tdnn/tdnn1_bn/mean' (what ``noupdate_var_list`` and
+    ``noload_var_list`` substrings are matched against)."""
+    return "/".join(jax_path(name)[1:])
+
+
 def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
     """A module tensor in the JAX layout, as a contiguous CPU copy."""
     t = t.detach().cpu()

@@ -1,16 +1,19 @@
 """Data pipeline of the port: speaker index, chunk samplers, the prefetch
-loader, and the device-resident sample pool (``device_pool``).
+loaders, the host-to-card transfer (``device_prefetch``) and the
+device-resident sample pool (``device_pool``).
 
-``KaldiDataSeqQueue`` keeps the reference's class name
-(dataset/data_loader.py) and the JAX package's constructor, so the trainer
-reads the same way.
+``KaldiDataRandomQueue`` and ``KaldiDataSeqQueue`` keep the reference's
+class names (dataset/data_loader.py) and the JAX package's constructors
+(``tf_kaldi_speaker_tpu/data/__init__.py``), so the trainer reads the same
+way. The loaders are threads, not processes: a forked child cannot use
+CUDA once the parent has initialized it.
 """
 
 from __future__ import annotations
 
 import random
 
-from .pipeline import PrefetchLoader
+from .pipeline import PrefetchLoader, device_prefetch
 from .sampler import (
     DataOutOfRange,
     RandomChunkSampler,
@@ -18,6 +21,50 @@ from .sampler import (
     bucket_lengths,
 )
 from .speaker_index import get_aux_speaker_info, get_speaker_info
+
+
+class KaldiDataRandomQueue(PrefetchLoader):
+    """Infinite random-batch loader with the reference's constructor shape."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        spklist: str,
+        num_parallel: int = 4,
+        max_qsize: int = 10,
+        num_speakers: int = 64,
+        num_segments: int = 1,
+        min_len: int = 200,
+        max_len: int = 400,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_buckets: int = 8,
+        raw_codes: bool = False,
+        length_seed: "int | None" = None,
+        group: int = 1,
+    ):
+        spk2features, _, spk2index = get_speaker_info(data_dir, spklist)
+        self.num_total_speakers = len(spk2index)
+
+        def factory(worker_seed: int):
+            return RandomChunkSampler(
+                data_dir,
+                spklist,
+                num_speakers,
+                num_segments,
+                min_len,
+                max_len,
+                shuffle,
+                worker_seed,
+                num_buckets,
+                spk2features=spk2features,
+                num_total_speakers=self.num_total_speakers,
+                raw_codes=raw_codes,
+                length_seed=length_seed,
+                group=group,
+            )
+
+        super().__init__(factory, num_parallel, max_qsize, base_seed=seed, finite=False)
 
 
 class KaldiDataSeqQueue(PrefetchLoader):
@@ -68,11 +115,13 @@ class KaldiDataSeqQueue(PrefetchLoader):
 
 __all__ = [
     "DataOutOfRange",
+    "KaldiDataRandomQueue",
     "KaldiDataSeqQueue",
     "PrefetchLoader",
     "RandomChunkSampler",
     "SequentialChunkSampler",
     "bucket_lengths",
+    "device_prefetch",
     "get_aux_speaker_info",
     "get_speaker_info",
 ]

@@ -1,18 +1,26 @@
-"""Host-side prefetching: worker threads fill a bounded queue.
+"""Host-side prefetching and the host-to-card transfer.
 
-A copy of ``PrefetchLoader`` from ``tf_kaldi_speaker_tpu/data/pipeline.py``
-(replacing the reference's multiprocessing producer queues,
-dataset/data_loader.py:310-414): worker *threads* (the decode is numpy and
-releases the GIL) fill a bounded queue; worker i uses seed
-``base_seed + i``. The JAX package's ``device_prefetch`` has no counterpart:
-the port's trainer feeds from the device pool.
+Counterpart of ``tf_kaldi_speaker_tpu/data/pipeline.py``:
+
+- ``PrefetchLoader`` is a copy (replacing the reference's multiprocessing
+  producer queues, dataset/data_loader.py:310-414): worker *threads* (the
+  decode is numpy and releases the GIL) fill a bounded queue; worker i uses
+  seed ``base_seed + i``.
+- :func:`device_prefetch` is ``device_prefetch`` in PyTorch's idiom: a
+  transfer thread pins each host batch and copies it to the card with
+  ``non_blocking=True`` on a side CUDA stream, ``depth`` batches ahead of
+  the consumer, and hands the tensors over with an event that the
+  consumer's stream waits on.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable
+from typing import Callable, Iterator, Tuple
+
+import numpy as np
+import torch
 
 from .sampler import DataOutOfRange
 
@@ -111,3 +119,110 @@ class PrefetchLoader:
             if close:
                 close()
         self._samplers = []
+
+
+def device_prefetch(iterator: Iterator, device, depth: int = 2,
+                    threaded: bool = True) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """Keep ``depth`` batches (tuples of numpy arrays) in flight onto
+    ``device`` ahead of consumption; yields tuples of tensors.
+
+    On a CUDA device each batch is pinned and copied with
+    ``non_blocking=True`` on a side stream; an event recorded after the
+    copies is waited on by the consumer's current stream before the batch
+    is yielded, and ``record_stream`` keeps the caching allocator from
+    reusing the buffers while that stream may still read them. By default
+    the copies are issued from a transfer thread, so that pinning overlaps
+    the consumer's step; ``threaded=False`` issues them inline as a double
+    buffer. A worker's exception is raised
+    on the consumer's thread. On the CPU device the arrays are wrapped with
+    ``torch.from_numpy``; any other device raises (a CUDA device without
+    CUDA raises where its stream is made)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        for batch in iterator:
+            yield tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+        return
+    if device.type != "cuda":
+        raise ValueError("device_prefetch: no transfer to %s" % device)
+    side = torch.cuda.Stream(device)
+
+    def _put(batch):
+        with torch.cuda.stream(side):
+            out = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                        .to(device, non_blocking=True) for a in batch)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
+
+    def _take(item):
+        tensors, ready = item
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(ready)
+        for t in tensors:
+            t.record_stream(consumer)
+        return tensors
+
+    if not threaded:
+        buf = []
+        it = iter(iterator)
+        try:
+            for _ in range(depth):
+                buf.append(_put(next(it)))
+        except StopIteration:
+            pass
+        while buf:
+            out = buf.pop(0)
+            try:
+                buf.append(_put(next(it)))
+            except StopIteration:
+                pass
+            yield _take(out)
+        return
+
+    q: queue.Queue = queue.Queue(depth)
+    stop = threading.Event()
+    done = object()
+
+    def _work():
+        try:
+            for batch in iterator:
+                dev = _put(batch)
+                while not stop.is_set():
+                    try:
+                        q.put(dev, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+            item = done
+        except BaseException as e:  # re-raised on the consumer thread
+            item = e
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    t = threading.Thread(target=_work, daemon=True)
+    t.start()
+    # Bound now: if a leftover generator is finalized at interpreter
+    # shutdown, the `queue` module global may already be None.
+    empty_exc = queue.Empty
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield _take(item)
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except empty_exc:
+            pass
+        t.join(timeout=5.0)

@@ -19,13 +19,19 @@ from . import _build
 
 
 def cm_dequantize_plain(codes: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same expression order)."""
+    """Plain PyTorch version of the kernel (same expression order, each
+    operation rounded once, so bit-equal to the kernel and the host codec).
+
+    The divisors are tensors on the codes' device: on CUDA, PyTorch divides
+    by a Python scalar as a product with its reciprocal, and 1/63 is not
+    exact; near a zero crossing that ulp of the product is the whole value."""
     c = codes.to(torch.float32)
     p = headers[:, :, None, :]  # [B, 4, 1, D]
     p0, p25, p75, p100 = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
-    lo = p0 + (p25 - p0) * (c / 64.0)
-    mid = p25 + (p75 - p25) * ((c - 64.0) / 128.0)
-    hi = p75 + (p100 - p75) * ((c - 192.0) / 63.0)
+    n64, n128, n63 = torch.tensor([64.0, 128.0, 63.0], device=c.device).unbind()
+    lo = p0 + (p25 - p0) * (c / n64)
+    mid = p25 + (p75 - p25) * ((c - 64.0) / n128)
+    hi = p75 + (p100 - p75) * ((c - 192.0) / n63)
     return torch.where(c <= 64.0, lo, torch.where(c <= 192.0, mid, hi))
 
 

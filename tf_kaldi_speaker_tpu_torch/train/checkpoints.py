@@ -19,10 +19,13 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/checkpoints.py``. Inside
 - ``checkpoint``            TF-style text pointer file:
       model_checkpoint_path: "model-<step>"
       all_model_checkpoint_paths: "model-<k>" ...
+  :func:`select_checkpoint` (``make_checkpoint``'s best/last selection)
+  rewrites only this file.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
@@ -86,6 +89,52 @@ def save_checkpoint(model_dir: str, tree: Any, step: int, keep_max: int = 0) -> 
     return path
 
 
+def checkpoint_path(model_dir: str, step: int) -> str:
+    """The file of checkpoint ``step``: the port's ``.pt`` where it exists,
+    else the JAX package's ``.msgpack``."""
+    pt = os.path.join(model_dir, "model-%d.pt" % step)
+    return pt if os.path.exists(pt) else os.path.join(model_dir, "model-%d.msgpack" % step)
+
+
+def select_checkpoint(model_dir: str, checkpoint="last", write: bool = True) -> int:
+    """Resolve "last" / step-id / "-1" (best by valid_loss) to a step and
+    rewrite the pointer (reference misc/utils.py:217-270 + make_checkpoint.py).
+    ``write=False`` resolves only, leaving the model dir untouched.
+
+    A copy of the JAX package's ``select_checkpoint``: "best" reads
+    ``<model_dir>/../valid_loss`` lines "epoch loss eer" and maps the best
+    epoch to step best_epoch*num_steps_per_epoch (1-based epochs, as
+    cli/train.py writes them), snapping to the closest existing checkpoint.
+    """
+    steps = list_steps(model_dir)
+    if not steps:
+        raise FileNotFoundError("No checkpoints in %s" % model_dir)
+    if checkpoint in ("-1", -1, "best"):
+        valid_loss_path = os.path.join(os.path.dirname(model_dir), "valid_loss")
+        if not os.path.exists(valid_loss_path):
+            valid_loss_path = os.path.join(model_dir, "valid_loss")
+        best_epoch, best_loss = None, None
+        with open(valid_loss_path) as f:
+            for line in f:
+                parts = line.split()
+                epoch, loss = int(parts[0]), float(parts[1])
+                if best_loss is None or loss < best_loss:
+                    best_epoch, best_loss = epoch, loss
+        with open(os.path.join(model_dir, "config.json")) as f:
+            num_steps = json.load(f)["num_steps_per_epoch"]
+        step = best_epoch * num_steps
+        # fall back to the closest existing checkpoint
+        step = min(steps, key=lambda s: abs(s - step))
+    elif checkpoint == "last":
+        step = steps[-1]
+    else:
+        step = int(checkpoint)
+    assert step in steps, "checkpoint model-%d not found" % step
+    if write:
+        write_pointer(model_dir, step)
+    return step
+
+
 def opt_state_from_raw(opt_state: Any) -> Dict[str, Any]:
     """The optimizer state of a loaded checkpoint in the port's layout:
     ``{}``, ``{"trace": tree}`` or ``{"count": int, "mu": tree, "nu":
@@ -116,10 +165,10 @@ def load_checkpoint(model_dir: str, step: Optional[int] = None) -> Tuple[Any, in
         if not steps:
             raise FileNotFoundError("No checkpoint in %s" % model_dir)
         step = steps[-1]
-    pt = os.path.join(model_dir, "model-%d.pt" % step)
-    if os.path.exists(pt):
-        return torch.load(pt, map_location="cpu", weights_only=True), step
-    with open(os.path.join(model_dir, "model-%d.msgpack" % step), "rb") as f:
+    path = checkpoint_path(model_dir, step)
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True), step
+    with open(path, "rb") as f:
         return msgpack_restore(f.read()), step
 
 

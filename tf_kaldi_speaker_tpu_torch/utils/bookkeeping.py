@@ -5,8 +5,8 @@ misc/utils.py:64-270): the model dir is the source of truth —
 ``config.json``, ``feature_dim``, ``num_speakers``, ``learning_rate`` (one
 "epoch lr" line per epoch), ``valid_loss`` ("epoch loss eer"), a code
 snapshot in ``<model>/codes``, and checkpoint files under ``<model>/nnet``.
-``get_pretrain_model`` (fine-tuning) is not copied: fine-tuning is a later
-slice of the port.
+``get_pretrain_model`` copies the port's ``.pt`` or the JAX package's
+``.msgpack``, whichever the pretrain dir holds for its step.
 """
 
 from __future__ import annotations
@@ -54,6 +54,20 @@ def save_codes_and_config(cont: bool, model_dir: str, config_path: Optional[str]
     )
     shutil.copyfile(config_path, os.path.join(nnet_dir, "config.json"))
     return Params(os.path.join(nnet_dir, "config.json"))
+
+
+def get_pretrain_model(pretrain_nnet: str, finetune_nnet: str) -> None:
+    """Copy a pretrained checkpoint in as step 0 (misc/utils.py:126-183)."""
+    from ..train import checkpoints
+
+    steps = checkpoints.list_steps(pretrain_nnet)
+    if not steps:
+        raise FileNotFoundError("No checkpoint in %s" % pretrain_nnet)
+    step = checkpoints.read_pointer(pretrain_nnet) or steps[-1]
+    src = checkpoints.checkpoint_path(pretrain_nnet, step)
+    os.makedirs(finetune_nnet, exist_ok=True)
+    shutil.copyfile(src, os.path.join(finetune_nnet, "model-0" + os.path.splitext(src)[1]))
+    checkpoints.write_pointer(finetune_nnet, 0)
 
 
 def load_lr_file(path: str) -> Dict[int, float]:

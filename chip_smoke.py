@@ -55,7 +55,19 @@ Phases, each of which raises on failure:
 16. ``cli.train_lr_learning --tune_period 2`` at flagship width, then
    ``cli.tune_lr``: finite sweep lines until the break;
 17. replay the shapes of the streaming, fine-tuning and LR-sweep paths, as
-   in 7.
+   in 7;
+18. the model zoo: ``cli.train`` with each of the six VoxCeleb recipe
+   configs that need it (self-attention pooling twice, the MHE and ring
+   aux losses, ECAPA-TDNN, ResNet34 with ``use_fused_pooling``) as shipped,
+   each on its own input branch, cut to 1 epoch of 16 steps in groups of 8,
+   4 loader threads and 2 validation batches (each kernel of the path must
+   launch: the dequant everywhere, both pooling kernels for ResNet34); one
+   ``torch.profiler`` pass over 8 steps for ECAPA and ResNet34; a card
+   float32 step against the CPU's for both; ``cli.extract --device-pipe``
+   from each trained dir against a float32 CPU forward of its checkpoint
+   (cosine >= 0.9999 per utterance); ``cli.extract --exact-long --chunk-size
+   256`` on the streamed fisher dir against its whole-utterance embeddings;
+   the zoo paths' shapes replayed, as in 7.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -143,6 +155,23 @@ FINETUNE = dict(TRAIN, num_epochs=1,
                                    "tdnn/tdnn1_bn", "tdnn/tdnn2_bn"],
                 noload_var_list=["softmax/output_kernel"])
 SCALAR_TAGS = ["accuracy", "loss", "penalty_loss", "regularization_loss", "total_loss"]
+# the model zoo: the VoxCeleb recipe configs that need a module beyond the
+# TDNN with statistics pooling and the softmax family, run as shipped, cut
+# in epochs, steps, group size, loader threads and validation batches; a
+# progress line after each group of 8; ResNet34 with the fused pooling
+# kernels, which its shared pooling registry honours
+VOX_CONF = os.path.join(ROOT, "recipes", "voxceleb", "v1", "nnet_conf")
+ZOO = ("tdnn_amsoftmax_m0.20_linear_bn_1e-2_tdnn4_att.json", "tdnn_arcsoftmax_m0.25_att.json",
+       "tdnn_amsoftmax_m0.20_linear_bn_1e-2_mhe0.01.json",
+       "tdnn_amsoftmax_m0.20_linear_bn_1e-2_r0.01.json", "ecapa_amsoftmax_m0.20.json",
+       "resnet34_amsoftmax_m0.20.json")
+ZOO_CUTS = dict(num_epochs=1, num_steps_per_epoch=16, steps_per_dispatch=8,
+                num_parallel_datasets=4, valid_max_iterations=2, show_training_progress=8)
+ZOO_OVERRIDES = {"resnet34_amsoftmax_m0.20.json": dict(use_fused_pooling=True)}
+# exact long-utterance extraction: chunks of 256 frames against the whole
+# forward, at the JAX package's test tolerance (tests/test_exact_long.py)
+EXACT_CHUNK = 256
+EXACT_TOL = dict(rtol=5e-3, atol=5e-4)
 CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main()
 
 
@@ -169,6 +198,9 @@ POOL_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=0.0, rt
 # reassociation; bf16 one ulp, and the float32 noise where the mean and
 # deviation terms cancel
 BWD_TOL = {"float32": dict(atol=1e-6, rtol=1e-5), "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+# a float32 train step on the card (TF32 off) against the CPU's: the loss's
+# relative gap (6 runs of the fisher step read 0 to 1.78e-6)
+CPU_GAP = 1e-5
 
 
 def bound_ms(nbytes, flops):
@@ -966,8 +998,8 @@ def profile_stream_group(torch, model, train):
 
 def check_stream_step_against_cpu(torch, model, train):
     """One float32 train step on the card (TF32 off) against the port's
-    float32 CPU step, both from the streamed run's final state, on one
-    streamed batch of raw codes: loss within a relative 1e-3."""
+    float32 CPU step, both from a trained dir's final state, on one
+    streamed batch of raw codes: loss within CPU_GAP relative."""
     from tf_kaldi_speaker_tpu_torch.data import KaldiDataRandomQueue
 
     gpu = _trainer_at(torch, model, "cuda", "float32")
@@ -984,12 +1016,12 @@ def check_stream_step_against_cpu(torch, model, train):
     loss_gpu = float(gpu.train_step_raw(codes.cuda(), headers.cuda(), labels.cuda(), lr)["loss"])
     loss_cpu = float(cpu.train_step_raw(codes, headers, labels, lr)["loss"])
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    if not (np.isfinite(loss_gpu) and rel < 1e-3):
-        raise AssertionError("card float32 loss %.6f vs CPU float32 %.6f (rel %.3g >= 1e-3)"
-                             % (loss_gpu, loss_cpu, rel))
-    print("one streamed train step %s, card float32 (TF32 off) vs CPU float32 from the streamed "
-          "run's state: loss %.6f vs %.6f, gap %.3g relative (< 1e-3) ok"
-          % (list(codes.shape), loss_gpu, loss_cpu, rel))
+    if not (np.isfinite(loss_gpu) and rel < CPU_GAP):
+        raise AssertionError("card float32 loss %.6f vs CPU float32 %.6f (rel %.3g >= %g)"
+                             % (loss_gpu, loss_cpu, rel, CPU_GAP))
+    print("one streamed train step %s, card float32 (TF32 off) vs CPU float32 from the state of "
+          "%s: loss %.6f vs %.6f, gap %.3g relative (< %g) ok"
+          % (list(codes.shape), os.path.basename(model), loss_gpu, loss_cpu, rel, CPU_GAP))
     return rel
 
 
@@ -1254,6 +1286,207 @@ def extract_trained(model, scp, root):
           % len(emb))
 
 
+def zoo_config(name):
+    """A zoo recipe config as shipped, with ZOO_CUTS and its override."""
+    with open(os.path.join(VOX_CONF, name)) as f:
+        return dict(json.load(f), **ZOO_CUTS, **ZOO_OVERRIDES.get(name, {}))
+
+
+def zoo_kernels(cfg):
+    """The kernels a zoo config's training path must launch: the dequant on
+    either input branch (the pool's gather or ``device_decode``), and the
+    pooling forward and backward where the statistics pooling is fused."""
+    fused = cfg.get("use_fused_pooling", False) and cfg["pooling_type"] == "statistics_pooling"
+    return ["cm_dequantize"] + (
+        ["masked_stats_pooling", "masked_stats_pooling_backward"] if fused else [])
+
+
+def run_zoo_training(torch, root, train, valid, name):
+    """cli.train with one zoo config; returns the run, the model dir and
+    the epoch's step times (the first group carries the loader's or the
+    pool's start-up and the first launches of every kernel)."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    cfg = zoo_config(name)
+    short = name[:-len(".json")]
+    model = os.path.join(root, "zoo_" + short)
+    cfg_path = write_json(os.path.join(root, "zoo_%s.json" % short), cfg)
+    run = drive(torch, cli_train.main, ["--config", cfg_path, "--device", "cuda", train["data"],
+                                        train["spklist"], valid["data"], valid["spklist"], model])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train %s exited %d" % (name, run["rc"]))
+    branch = "device pool" if cfg.get("device_pool") else "streaming, device_decode"
+    check_launched("zoo path %s (cli.train, %s, float32)" % (short, branch), run,
+                   zoo_kernels(cfg))
+    losses = [float(m.split("loss ")[1].split()[0]) for lname, m in run["logged"]
+              if lname == "tfks_torch.trainer" and " loss " in m]
+    K, n = cfg["steps_per_dispatch"], cfg["num_steps_per_epoch"]
+    if len(losses) != n // K or not np.all(np.isfinite(losses)):
+        raise AssertionError("%s: logged losses %s (expected %d finite)" % (name, losses, n // K))
+    with open(os.path.join(model, "nnet", "valid_loss")) as f:
+        valid_lines = f.read().split("\n")[:-1]
+    if len(valid_lines) != 1 or not np.isfinite(float(valid_lines[0].split()[1])):
+        raise AssertionError("%s: valid_loss %s" % (name, valid_lines))
+    groups, epoch_s = group_times(run["marks"], 0)
+    step_ms = 1e3 * float(np.median(groups)) / K
+    steady_ms = 1e3 * groups[-1] / K
+    rate = n * cfg["num_speakers_per_batch"] / epoch_s
+    print("zoo train step %s (%s): %d groups of %d steps, float32, batch %d x %d-%d frames: "
+          "median %.3f ms per step, %.3f ms in the last group (group times %s s, the first with "
+          "start-up), %.1f chunks/s over the epoch; group losses %s, valid line %s; whole "
+          "cli.train run %.2f s"
+          % (short, CARD, len(groups), K, cfg["num_speakers_per_batch"], cfg["min_segment_len"],
+             cfg["max_segment_len"], step_ms, steady_ms, ["%.4f" % g for g in groups], rate,
+             losses, valid_lines[0], run["wall"]))
+    return run, model, dict(step_ms=step_ms, last_group_step_ms=steady_ms, chunks_per_s=rate,
+                            group_s=groups, wall_s=run["wall"])
+
+
+def profile_zoo_group(torch, model, train, label):
+    """One torch.profiler pass over a group of 8 float32 steps from the
+    trained dir's state, on one loader group of raw codes already on the
+    card, after the same group once as warm-up: the device's busy and idle
+    share, and the kernels that take most of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tf_kaldi_speaker_tpu_torch.data import KaldiDataRandomQueue
+
+    t = _trainer_at(torch, model, "cuda", "float32")
+    cfg = t.params.dict
+    q = KaldiDataRandomQueue(train["data"], train["spklist"], num_parallel=1, max_qsize=1,
+                             num_speakers=int(cfg["num_speakers_per_batch"]), seed=17,
+                             raw_codes=True, group=8).start()
+    try:
+        codes, headers, labels = (torch.from_numpy(a).cuda() for a in q.fetch())
+    finally:
+        q.stop()
+    lr = float(cfg["learning_rate"])
+
+    def steps():
+        for k in range(8):
+            t.train_step_raw(codes[k], headers[k], labels[k], lr)
+
+    steps()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, n_events, by_name = device_busy(torch, prof)
+    if not n_events:
+        print("profile %s: no device events in the trace; device idle share not measured" % label)
+        return {}
+    print("profile %s (%s), 8 float32 steps %s codes under torch.profiler: wall %.4f s, device "
+          "busy %.4f s, device idle %.1f%%, %d device events"
+          % (label, CARD, list(codes.shape[1:]), wall, busy_s, 100 * (1 - busy_s / wall),
+             n_events))
+    print_top(by_name, busy_s)
+    return {label + "_profile_wall_s": wall, label + "_profile_busy_s": busy_s,
+            label + "_device_idle": 1 - busy_s / wall}
+
+
+def extract_zoo(torch, name, model, scp, root):
+    """cli.extract --device-pipe (no CMVN, no VAD) from a zoo dir on the card
+    against a float32 CPU forward of the same checkpoint on each utterance
+    unpadded: cosine >= 0.9999 for every one. Returns the run."""
+    from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
+    from tf_kaldi_speaker_tpu_torch.convert import network_from_variables
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp, read_vec_flt_scp
+    from tf_kaldi_speaker_tpu_torch.train.checkpoints import load_checkpoint
+
+    cfg = zoo_config(name)
+    out = os.path.join(root, "zoo_xvector_" + name[:-len(".json")])
+    run = drive(torch, cli_extract.main, ["--device-pipe", "--batch-size", "32", "--device", "cuda",
+                                          model, "scp:" + scp, "ark,scp:%s.ark,%s.scp" % (out, out)])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.extract from %s exited %d" % (model, run["rc"]))
+    kernels = ["cm_dequantize"] + zoo_kernels(cfg)[1:2]  # the backward runs in training only
+    check_launched("zoo extraction %s (cli.extract --device-pipe, float32)"
+                   % name[:-len(".json")], run, kernels)
+    got = dict(read_vec_flt_scp(out + ".scp"))
+    raw, _ = load_checkpoint(os.path.join(model, "nnet"))
+    net = network_from_variables({"params": raw["params"]["network"],
+                                  "batch_stats": raw["batch_stats"]["network"]}, cfg,
+                                 cfg.get("network_type", "tdnn"), input_dim=FEAT_DIM)
+    node = cfg.get("embedding_node", "tdnn6_dense")
+    worst = 1.0
+    with torch.no_grad():
+        for key, mat in read_mat_scp(scp):
+            want = net(torch.from_numpy(mat)[None])[1][node][0].numpy()
+            if key not in got or got[key].shape != want.shape or not np.isfinite(got[key]).all():
+                raise AssertionError("%s: %s missing, misshapen or not finite" % (name, key))
+            worst = min(worst, cosine(got[key], want))
+    if len(got) != N_UTTS or not worst >= 0.9999:
+        raise AssertionError("%s: %d embeddings, card vs CPU float32 min cosine %.6f (< 0.9999)"
+                             % (name, len(got), worst))
+    print("cli.extract --device-pipe from %s: %d finite %d-d %s embeddings; card vs CPU float32 "
+          "forward of the checkpoint, unpadded: min cosine %.7f (>= 0.9999) ok"
+          % (os.path.basename(model), len(got), len(want), node, worst))
+    return run, worst
+
+
+def check_exact_long(torch, model, scp, root):
+    """cli.extract --exact-long --chunk-size 256 (the utterances over 256
+    frames through the chunked, float64-accumulated path) against the
+    whole-utterance embeddings of cli.extract, both on the card, host path,
+    float32: within EXACT_TOL for every utterance."""
+    from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp, read_vec_flt_scp
+
+    outs = {}
+    for name, flags in (("whole", []), ("exact", ["--exact-long", "--chunk-size",
+                                                  str(EXACT_CHUNK)])):
+        out = os.path.join(root, "exact_long_" + name)
+        t0 = time.perf_counter()
+        rc = cli_extract.main(flags + ["--device", "cuda", model, "scp:" + scp,
+                                       "ark,scp:%s.ark,%s.scp" % (out, out)])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError("cli.extract %s exited %d" % (" ".join(flags), rc))
+        outs[name] = (dict(read_vec_flt_scp(out + ".scp")), time.perf_counter() - t0)
+    whole, exact = outs["whole"][0], outs["exact"][0]
+    longs = [k for k, m in read_mat_scp(scp) if m.shape[0] > EXACT_CHUNK]
+    worst = 0.0
+    for k in whole:
+        a, b = exact[k], whole[k]
+        if not np.allclose(a, b, **EXACT_TOL):
+            raise AssertionError("exact-long %s: max abs err %.3g beyond rtol %g atol %g"
+                                 % (k, float(np.abs(a - b).max()), EXACT_TOL["rtol"],
+                                    EXACT_TOL["atol"]))
+        worst = max(worst, float(np.abs(a - b).max()))
+    if sorted(exact) != sorted(whole) or len(whole) != N_UTTS or not longs:
+        raise AssertionError("exact-long: keys %d vs %d, %d long" % (len(exact), len(whole),
+                                                                     len(longs)))
+    print("cli.extract --exact-long --chunk-size %d from %s (%s): %d of %d utterances over %d "
+          "frames through the exact path; every embedding within rtol %g / atol %g of the "
+          "whole-utterance forward (max abs err %.3g) ok; cli.extract %.2f s whole, %.2f s exact"
+          % (EXACT_CHUNK, os.path.basename(model), CARD, len(longs), len(whole), EXACT_CHUNK,
+             EXACT_TOL["rtol"], EXACT_TOL["atol"], worst, outs["whole"][1], outs["exact"][1]))
+    return worst
+
+
+def run_zoo(torch, root, train, valid, scp, streamed):
+    """The zoo phase (18): train, profile, hold the card against the CPU,
+    extract; then exact-long extraction from the streamed fisher dir.
+    Returns each path's run (training and extraction) and a summary."""
+    runs, summary = {}, {}
+    for name in ZOO:
+        short = name[:-len(".json")]
+        run, model, times = run_zoo_training(torch, root, train, valid, name)
+        runs["zoo:" + short] = run
+        summary[short] = times
+        if name.startswith(("ecapa", "resnet")):
+            label = short.split("_")[0]
+            summary[short].update(profile_zoo_group(torch, model, train, label))
+            summary[short]["cpu_loss_gap"] = check_stream_step_against_cpu(torch, model, train)
+        erun, worst = extract_zoo(torch, name, model, scp, root)
+        runs["zoo_extract:" + short] = erun
+        summary[short]["extract_min_cosine"] = worst
+    summary["exact_long_max_abs_err"] = check_exact_long(torch, streamed, scp, root)
+    return runs, summary
+
+
 def main():
     import logging
 
@@ -1321,10 +1554,19 @@ def main():
                         ("tune_lr_mix_", tune)):
         replay_mix(torch, {k: v for k, v in run["shapes"].items() if v}, rows, flush,
                    prefix=prefix)
-    del flush
     print("streaming, preemption, fine-tuning and LR-sweep summary (%s): %s" % (CARD, json.dumps(
         dict(stream_time, **(stream_profile or {}), stream_cpu_loss_gap=gap, **preempt,
              finetune_wall_s=finetune["wall"], tune_lr_wall_s=tune["wall"]))))
+
+    zoo_runs, zoo_summary = run_zoo(torch, WORK_DIR, train, valid, scp, streamed)
+    zoo_shapes = {}
+    for path, run in zoo_runs.items():
+        paths[path] = run["launches"]
+        for name, counter in run["shapes"].items():
+            zoo_shapes.setdefault(name, collections.Counter()).update(counter)
+    replay_mix(torch, {k: v for k, v in zoo_shapes.items() if v}, rows, flush, prefix="zoo_mix_")
+    del flush
+    print("zoo summary (%s): %s" % (CARD, json.dumps(zoo_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

@@ -161,3 +161,47 @@ def test_find_worker_group_and_summaries(tmp_path):
     assert cs.check_summaries(str(tmp_path / "nnet"), [8, 16]) == 1
     with pytest.raises(AssertionError, match="at steps"):
         cs.check_summaries(str(tmp_path / "nnet"), [8, 16, 24])
+
+
+def test_zoo_configs_are_the_recipes():
+    """The zoo phase runs the six VoxCeleb configs that need the zoo as
+    shipped, cut only in epochs, steps, group size, loader threads,
+    validation batches and progress cadence, and ResNet34 with the fused
+    pooling; every kernel its path must launch."""
+    cs = _chip_smoke()
+    assert len(cs.ZOO) == 6 and all(os.path.exists(os.path.join(cs.VOX_CONF, n)) for n in cs.ZOO)
+    assert cs.ZOO_CUTS == dict(num_epochs=1, num_steps_per_epoch=16, steps_per_dispatch=8,
+                               num_parallel_datasets=4, valid_max_iterations=2,
+                               show_training_progress=8)
+    kinds = set()
+    for name in cs.ZOO:
+        with open(os.path.join(cs.VOX_CONF, name)) as f:
+            shipped = json.load(f)
+        cfg = cs.zoo_config(name)
+        over = cs.ZOO_OVERRIDES.get(name, {})
+        assert {k: v for k, v in cfg.items() if k not in cs.ZOO_CUTS and k not in over} == \
+            {k: v for k, v in shipped.items() if k not in cs.ZOO_CUTS and k not in over}
+        assert "compute_dtype" not in cfg and cfg["num_speakers_per_batch"] == 64
+        kinds.add((cfg.get("network_type"), cfg["pooling_type"],
+                   tuple(cfg.get("aux_loss_func", ())), bool(cfg.get("device_pool"))))
+        want = ["cm_dequantize"]
+        if name.startswith("resnet34"):
+            assert cfg["use_fused_pooling"] and over == dict(use_fused_pooling=True)
+            want += ["masked_stats_pooling", "masked_stats_pooling_backward"]
+        assert cs.zoo_kernels(cfg) == want
+    assert kinds == {("tdnn", "self_attention", (), True), ("tdnn", "self_attention", (), False),
+                     ("tdnn", "statistics_pooling", ("mhe_loss",), False),
+                     ("tdnn", "statistics_pooling", ("ring_loss",), True),
+                     ("ecapa_tdnn", "statistics_pooling", (), False),
+                     ("resnet34", "statistics_pooling", (), False)}
+    assert cs.EXACT_CHUNK == 256 and cs.EXACT_TOL == dict(rtol=5e-3, atol=5e-4)
+
+
+def test_group_times_of_a_single_epoch():
+    """The zoo runs one epoch: its groups are read from the epoch's start
+    at step 0."""
+    cs = _chip_smoke()
+    marks = [("start", 0, 0.0), ("group", 8, 2.0), ("posted", 8, 2.5), ("group", 16, 3.0),
+             ("posted", 16, 3.25)]
+    groups, epoch_s = cs.group_times(marks, 0)
+    assert groups == [2.0, 0.5] and epoch_s == 3.0

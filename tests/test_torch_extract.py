@@ -226,5 +226,10 @@ def test_cli_extract_end_to_end(model, scp, tmp_path):
     assert "uttlong" in want and len(want) == 7
     _assert_same(dict(read_vec_flt_scp(str(tmp_path / "host.scp"))), want, PIPE_TOL)
     _assert_same(dict(read_vec_flt_scp(str(tmp_path / "dev.scp"))), want, PIPE_TOL)
-    with pytest.raises(SystemExit, match="not ported"):
-        extract_main(["--exact-long", model, "scp:" + both, out("x")])
+    # --exact-long: the long utterance through the exact path on both pipes
+    assert jax_extract_main(["--exact-long"] + flags + [model, "scp:" + both, out("jax_x")]) == 0
+    want = dict(read_vec_flt_scp(str(tmp_path / "jax_x.scp")))
+    for name, pipe in (("host_x", []), ("dev_x", ["--device-pipe"])):
+        assert extract_main(["--exact-long"] + pipe + flags + [
+            "--device", "cpu", model, "scp:" + both, out(name)]) == 0
+        _assert_same(dict(read_vec_flt_scp(str(tmp_path / (name + ".scp")))), want, PIPE_TOL)

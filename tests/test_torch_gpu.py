@@ -393,3 +393,121 @@ def test_streamed_epoch_on_card_matches_cpu(cuda, tmp_path):
             continue
         np.testing.assert_allclose(flat["cuda"][path].numpy(), w.numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg="/".join(path))
+
+
+# ---------------------------------------------------------------- the model zoo
+
+def _resnet_mask(b, l, seed):
+    """Prefix masks of utterances 8x longer, downsampled as ResNet34's
+    stride-2 stages do (mask[:, ::2] three times)."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, 8 * l + 1, (b,), generator=g)
+    lengths[-1] = 8 * l
+    mask = (torch.arange(8 * l)[None, :] < lengths[:, None]).float()
+    return mask[:, ::2][:, ::2][:, ::2].contiguous()
+
+
+@pytest.mark.parametrize("l", [25, 38, 50])
+def test_stats_pooling_kernels_at_resnet_shapes(cuda, l):
+    """Forward and backward at the ResNet34 zoo shape [64, 25-50, 1024]
+    float32 (200-400 frames in, 4 frequency bins x 256 channels)."""
+    x, _ = _ragged(11, 64, l, 1024)
+    mask = _resnet_mask(64, l, 12)
+    got = masked_stats_pooling(x.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    want = masked_stats_pooling_plain(x, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **POOL_TOL)
+    out, g = _bwd_inputs(x, mask, 13)
+    _check_bwd(cuda, x, mask, out, g, "float32")
+
+
+ZOO_NETS = {
+    "ecapa": dict(network_type="ecapa_tdnn", ecapa_channels=32, ecapa_mfa_channels=48,
+                  ecapa_res2net_scale=4, ecapa_se_bottleneck=8, ecapa_att_bottleneck=8,
+                  ecapa_embedding_dim=16, pooling_type="statistics_pooling"),
+    "resnet_fused": dict(network_type="resnet34", resnet_base_channels=8,
+                         resnet_layers=[1, 1, 1, 1], resnet_embedding_dim=16,
+                         pooling_type="statistics_pooling", use_fused_pooling=True),
+    "tdnn_attention": dict(TINY, use_fused_pooling=False, pooling_type="self_attention",
+                           att_key_input="tdnn4_relu", att_key_num_nodes=[16, 8],
+                           att_key_network_type=3, att_value_input="tdnn5_relu",
+                           att_num_heads=2, att_split_key=True, att_use_scale=True,
+                           att_apply_nonlinear=True, att_penalty_term=0.5),
+    "tdnn_ghost_vlad": dict(TINY, use_fused_pooling=False, pooling_type="ghost_vlad",
+                            vlad_num_centers=4, vlad_num_ghosts=1, vlad_key_input="tdnn4_relu",
+                            vlad_value_input="tdnn5_relu", vlad_value_num_nodes=[12],
+                            vlad_final_l2_norm=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_NETS))
+def test_zoo_network_on_card_matches_cpu(cuda, name):
+    """On the card against the CPU (float32, TF32 off): every endpoint of an
+    eval forward (rtol 1e-4 / atol 1e-5); a train-mode forward's output
+    (atol 5e-3: its BatchNorms normalize over 4 rows, and a column whose 4
+    values nearly agree scales float32 rounding by up to 1 / sqrt(eps), as
+    ECAPA's pooled stddevs do) and BatchNorm statistics; the parameters'
+    gradients of sum(output * r) in eval mode (train-mode BatchNorms leave
+    the biases before them only rounding noise). ResNet34 with the fused
+    pooling launches the forward kernel on each card forward and the
+    backward kernel on the card's backward."""
+    cfg = ZOO_NETS[name]
+    net = EntireNetwork(cfg, D, cfg["network_type"], torch.Generator().manual_seed(0))
+    feats = torch.randn(4, 80, D, generator=torch.Generator().manual_seed(1))
+    mask = (torch.arange(80)[None, :] < torch.tensor([[80], [61], [47], [33]])).float()
+    r = torch.randn(4, net.output_dim, generator=torch.Generator().manual_seed(2))
+    card = EntireNetwork(cfg, D, cfg["network_type"]).to(cuda)
+    card.load_state_dict(net.state_dict())
+    n_fwd, n_bwd = masked_stats_pooling.launches, masked_stats_pooling_backward.launches
+    with torch.no_grad():
+        want = net.eval()(feats, mask)[1]
+        got = card.eval()(feats.to(cuda), mask.to(cuda))[1]
+        for k in want:
+            np.testing.assert_allclose(got[k].float().cpu().numpy(), want[k].float().numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+        out_cpu = net.train()(feats, mask)[0]
+        out_card = card.train()(feats.to(cuda), mask.to(cuda))[0]
+        np.testing.assert_allclose(out_card.cpu().numpy(), out_cpu.numpy(), rtol=1e-3,
+                                   atol=5e-3)
+        for (k, a), b in zip(net.state_dict().items(), card.state_dict().values()):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    grads = {}
+    for where, model, x, m, rr in (("cpu", net, feats, mask, r),
+                                   ("card", card, feats.to(cuda), mask.to(cuda), r.to(cuda))):
+        out, _ = model.eval()(x, m)
+        params = dict(model.named_parameters())
+        grads[where] = dict(zip(params, torch.autograd.grad(torch.sum(out * rr),
+                                                            list(params.values()))))
+    if cfg.get("use_fused_pooling"):
+        assert masked_stats_pooling.launches == n_fwd + 3
+        assert masked_stats_pooling_backward.launches == n_bwd + 1
+    for k, w in grads["cpu"].items():
+        if k == "ecapa.asp.att_scores.bias":  # the softmax over time takes it out
+            continue
+        np.testing.assert_allclose(grads["card"][k].cpu().numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-5 * (float(w.abs().max()) + 1e-6), err_msg=k)
+
+
+def test_exact_long_on_card_matches_cpu(cuda, tmp_path):
+    """embed_long_exact on the card against the CPU, and against the card's
+    whole-utterance forward (rtol 5e-3 / atol 5e-4, the JAX test's)."""
+    from tf_kaldi_speaker_tpu_torch.extract.extractor import Extractor
+
+    cfg = dict(TINY, use_fused_pooling=False)
+    net = EntireNetwork(cfg, D, generator=torch.Generator().manual_seed(0))
+    v = variables_from_network(net)
+    nnet = tmp_path / "m" / "nnet"
+    save_checkpoint(str(nnet), {"params": {"network": v["params"]},
+                                "batch_stats": {"network": v["batch_stats"]}}, 0)
+    (nnet / "config.json").write_text(json.dumps(cfg))
+    (nnet / "feature_dim").write_text("%d\n" % D)
+    feat = np.random.RandomState(3).randn(1000, D).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ex = Extractor(str(tmp_path / "m"), min_chunk_size=20, chunk_size=5000, device=device)
+        whole = ex.embed_utterance(feat)
+        ex.chunk_size = 256
+        out[device] = ex.embed_long_exact(feat), whole
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out["cuda"][0], out["cuda"][1], rtol=5e-3, atol=5e-4)

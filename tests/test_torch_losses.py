@@ -157,8 +157,8 @@ def test_head_names_and_refusals():
     for name in thead.STRUCTURAL_LOSSES:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             thead.LossHead(name, 4, {}, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thead.LossHead("softmax", 4, {"aux_loss_func": ["ring_loss"]}, 6)
+    with pytest.raises(NotImplementedError, match="Unsupported aux loss"):
+        thead.LossHead("softmax", 4, {"aux_loss_func": ["no_such_aux"]}, 6)
     with pytest.raises(NotImplementedError, match="Not implement"):
         thead.LossHead("no_such_loss", 4, {}, 6)
     h = thead.LossHead("additive_margin_softmax", 7, {}, 5,

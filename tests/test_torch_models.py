@@ -133,13 +133,14 @@ def test_converter_rejects_unconsumed_and_misshapen_arrays():
 
 
 def test_unported_network_and_train_mode_raise():
-    """Unported networks and poolings raise; train mode, ported with the
-    trainer, runs and moves the BatchNorm statistics (its parity with flax
-    is in test_torch_train.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EntireNetwork(TINY, D, network_type="ecapa_tdnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EntireNetwork(dict(TINY, pooling_type="self_attention"), D)
+    """Unknown networks and poolings raise, as the JAX package's do (the
+    zoo's are ported, tests/test_torch_zoo_*.py); train mode, ported with
+    the trainer, runs and moves the BatchNorm statistics (its parity with
+    flax is in test_torch_train.py)."""
+    with pytest.raises(NotImplementedError, match="Not implement"):
+        EntireNetwork(TINY, D, network_type="no_such_network")
+    with pytest.raises(NotImplementedError, match="Not implement"):
+        EntireNetwork(dict(TINY, pooling_type="no_such_pooling"), D)
     net = EntireNetwork(TINY, D).train()
     out, _ = net(torch.randn(2, 30, D, generator=torch.Generator().manual_seed(0)))
     assert torch.isfinite(out).all()

@@ -6,9 +6,13 @@ plus ``--device``. ``--cmvn`` and ``--vad`` replace Kaldi's feature pipe
 ships raw compressed-ark codes and runs dequantize + CMVN + VAD +
 voiced-frame compaction + forward on the device.
 
+``--exact-long`` embeds utterances longer than ``--chunk-size`` exactly
+(``Extractor.embed_long_exact``: streamed sums of the TDNN's frame layers)
+instead of averaging 50%-overlap chunk embeddings.
+
 Usage:
     python -m tf_kaldi_speaker_tpu_torch.cli.extract [--device-pipe] \
-        [--cmvn] [--vad] [--normalize] [--device cuda] \
+        [--cmvn] [--vad] [--normalize] [--exact-long] [--device cuda] \
         model_dir scp:feats.scp ark,scp:xvector.ark,xvector.scp
 """
 
@@ -50,7 +54,7 @@ def apply_cmvn_vad(feature: np.ndarray, cmvn: bool, vad: bool,
 def _main_device_pipe(args) -> int:
     """--device-pipe: raw CM codes in, the pipe on the device. Utterances
     longer than chunk_size go through the host pipe and the 50%-overlap
-    long path."""
+    (or, with --exact-long, the exact) long path."""
     kind, _, path = args.rspecifier.partition(":")
     if kind != "scp" or not path:
         raise SystemExit(
@@ -90,7 +94,11 @@ def _main_device_pipe(args) -> int:
         if feature.shape[0] < args.min_chunk_size:
             logging.info("Key %s length too short after pipe, skip.", key)
             continue
-        writer.write(key, extractor.embed_utterance(feature).astype("float32"))
+        if args.exact_long and feature.shape[0] > args.chunk_size:
+            embedding = extractor.embed_long_exact(feature)
+        else:
+            embedding = extractor.embed_utterance(feature)
+        writer.write(key, embedding.astype("float32"))
         count += 1
     writer.close()
     logging.info("Extracted %d embeddings.", count)
@@ -110,7 +118,9 @@ def main(argv=None) -> int:
     parser.add_argument("--vad", action="store_true", help="energy VAD frame selection")
     parser.add_argument(
         "--exact-long", action="store_true",
-        help="exact embeddings for utterances > chunk-size (not ported yet)",
+        help="EXACT embeddings for utterances > chunk-size via streamed "
+             "pooled-stats accumulation (default: reference-parity "
+             "50%%-overlap chunk averaging)",
     )
     parser.add_argument(
         "--device-pipe", action="store_true",
@@ -124,9 +134,6 @@ def main(argv=None) -> int:
     parser.add_argument("wspecifier")
     args = parser.parse_args(argv)
 
-    if args.exact_long:
-        raise SystemExit("--exact-long is not ported yet (ROADMAP.md §1); "
-                         "use the JAX package's cli.extract for it")
     if args.device_pipe:
         return _main_device_pipe(args)
 
@@ -150,9 +157,22 @@ def main(argv=None) -> int:
                 continue
             yield key, feature
 
+    def embedding_stream():
+        if not args.exact_long:
+            yield from extractor.embed_stream(stream())
+            return
+        # long utterances through the exact path as they come, the rest batched
+        shorts = []
+        for key, feature in stream():
+            if feature.shape[0] > args.chunk_size:
+                yield key, extractor.embed_long_exact(feature)
+            else:
+                shorts.append((key, feature))
+        yield from extractor.embed_stream(iter(shorts))
+
     writer = ArkScpWriter(args.wspecifier, kind="vec")
     count = 0
-    for key, embedding in extractor.embed_stream(stream()):
+    for key, embedding in embedding_stream():
         # --normalize is applied inside the Extractor (per chunk + final L2)
         writer.write(key, embedding.astype("float32"))
         count += 1

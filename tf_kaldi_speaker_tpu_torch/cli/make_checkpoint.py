@@ -5,11 +5,10 @@ egs/voxceleb/v1/nnet/lib/make_checkpoint.py + misc/utils.py:217-270,
 get_checkpoint): "-1" selects the best epoch by the ``valid_loss`` file;
 "last" the newest; an integer a specific step. Only the ``checkpoint``
 pointer file is rewritten; the port's ``.pt`` and the JAX package's
-``.msgpack`` checkpoints both count. ``--device`` is accepted, as by the
-other CLIs, and unused: nothing here touches a device.
+``.msgpack`` checkpoints both count. Nothing here touches a device.
 
 Usage:
-    python -m tf_kaldi_speaker_tpu_torch.cli.make_checkpoint [--checkpoint last] [--device cuda] model_dir
+    python -m tf_kaldi_speaker_tpu_torch.cli.make_checkpoint [--checkpoint last] model_dir
 """
 
 from __future__ import annotations
@@ -24,8 +23,6 @@ from ..train.checkpoints import select_checkpoint
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--checkpoint", default="last", help='"last", "-1" (best) or a step id')
-    parser.add_argument("--device", default="cuda",
-                        help="accepted as by the other CLIs; nothing here runs on a device")
     parser.add_argument("model_dir")
     args = parser.parse_args(argv)
     nnet_dir = os.path.join(args.model_dir, "nnet")

@@ -12,11 +12,14 @@ layouts change:
 
 - a module path ``a.b.leaf`` is the JAX path ``(collection, a, b, leaf)``;
   the collection is ``batch_stats`` for BatchNorm's ``mean``/``var`` and
-  ``params`` for everything else;
-- conv kernel ``[k, in, out]`` <-> ``weight [out, in, k]`` and dense kernel
-  ``[in, out]`` <-> ``weight [out, in]`` (both "reverse all axes");
-- BatchNorm ``scale``/``bias``, PReLU ``alpha``, every bias and the loss
-  head's ``output_kernel`` [D, C]: copied as they are.
+  ``params`` for everything else (the attention ``query``, the GhostVLAD
+  ``vlad_centers`` and the ring loss's ``ring_r`` included);
+- 1-D conv kernel ``[k, in, out]`` <-> ``weight [out, in, k]`` and dense
+  kernel ``[in, out]`` <-> ``weight [out, in]`` (both "reverse all axes");
+- 2-D conv kernel ``[kh, kw, in, out]`` <-> ``weight [out, in, kh, kw]``
+  (reversing all axes would swap time and frequency);
+- BatchNorm ``scale``/``bias``, PReLU ``alpha``, every bias, the loss
+  head's ``output_kernel`` [D, C] and the leaves above: copied as they are.
 
 An array the converter does not consume, a missing one, or one of the wrong
 shape raises.
@@ -24,7 +27,7 @@ shape raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +58,7 @@ def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
     """A module tensor in the JAX layout, as a contiguous CPU copy."""
     t = t.detach().cpu()
     if name.endswith(".weight"):
-        t = t.permute(*reversed(range(t.dim())))
+        t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.permute(*reversed(range(t.dim())))
     return t.contiguous().clone()
 
 
@@ -63,7 +66,7 @@ def from_jax_layout(name: str, v: Any) -> torch.Tensor:
     """A JAX array (numpy or tensor) in the module's layout, on the CPU."""
     t = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
     if name.endswith(".weight"):
-        t = t.permute(*reversed(range(t.dim())))
+        t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.permute(*reversed(range(t.dim())))
     return t
 
 
@@ -124,16 +127,30 @@ def load_variables(module: nn.Module, variables: Dict[str, Any]) -> None:
     module.load_state_dict(named_from_tree(variables, refs, "variables"))
 
 
+# network_type -> the first conv kernel [k, in, out], which carries the
+# input width; ResNet34's stem [3, 3, 1, C] does not
+_FIRST_KERNEL = {"tdnn": ("params", "tdnn", "tdnn1_conv", "kernel"),
+                 "ecapa_tdnn": ("params", "ecapa", "conv1", "kernel")}
+
+
 def network_from_variables(
-    variables: Dict[str, Any], config: Dict[str, Any], network_type: str = "tdnn"
+    variables: Dict[str, Any], config: Dict[str, Any], network_type: str = "tdnn",
+    input_dim: Optional[int] = None,
 ) -> EntireNetwork:
     """Build an eval-mode float32 :class:`EntireNetwork` on the CPU from the
-    JAX variable tree (numpy arrays or CPU tensors)."""
-    first = ("params", "tdnn", "tdnn1_conv", "kernel")
-    flat = flatten(variables)
-    if first not in flat:
-        raise KeyError("variables hold no %s" % "/".join(first))
-    net = EntireNetwork(config, int(np.shape(flat[first])[1]), network_type)
+    JAX variable tree (numpy arrays or CPU tensors). The input width is
+    ``input_dim`` (a model dir's ``feature_dim``) where given, else the
+    first conv kernel's (required for ResNet34)."""
+    if input_dim is None:
+        first = _FIRST_KERNEL.get(network_type)
+        if first is None:
+            raise ValueError("network_type %r needs input_dim (the model dir's feature_dim)"
+                             % network_type)
+        flat = flatten(variables)
+        if first not in flat:
+            raise KeyError("variables hold no %s" % "/".join(first))
+        input_dim = int(np.shape(flat[first])[1])
+    net = EntireNetwork(config, int(input_dim), network_type)
     load_variables(net, variables)
     return net.eval()
 

@@ -5,7 +5,12 @@ grouped into geometric length buckets, padded and masked (masked pooling
 makes the padded forward equal the unpadded one) and embedded in batches.
 Utterances longer than ``chunk_size`` keep the reference's semantics: split
 into 50%-overlapping windows, embed, length-weighted average, optional L2
-norm (reference extract.py:69-93). ``embed_long_exact`` is not ported yet.
+norm (reference extract.py:69-93). :meth:`Extractor.embed_long_exact` is
+the exact alternative for the TDNN with statistics pooling (JAX
+``extractor.py:287-412``): statistics pooling is associative, so the frame
+layers' sums over chunks that overlap by the TDNN's context, accumulated in
+float64, give the embedding of one forward over the whole utterance with
+O(chunk) memory.
 
 bf16 models follow the JAX policy (``extractor.py:100-118``): the host
 casts features to bf16, and every float32 variable, BatchNorm statistics
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 
 from ..convert import network_from_variables
+from ..models.layers import VAR2STD_EPSILON
+from ..models.tdnn import TDNN_TOTAL_CONTEXT, TDNNFrames, TDNNTail
 from ..train import checkpoints
 from ..utils.params import Params
 
@@ -75,7 +82,8 @@ class Extractor:
             "batch_stats": raw.get("batch_stats", {}).get("network", {}),
         }
         net = network_from_variables(
-            variables, self.params.dict, self.params.dict.get("network_type", "tdnn"))
+            variables, self.params.dict, self.params.dict.get("network_type", "tdnn"),
+            input_dim=self.dim)
         bf16 = self.params.dict.get("compute_dtype", "float32") == "bfloat16"
         self.feed_dtype = torch.bfloat16 if bf16 else torch.float32
         # Every float32 parameter and buffer (BN statistics too) in bf16.
@@ -218,3 +226,75 @@ class Extractor:
         if not out:
             raise ValueError("utterance shorter than min_chunk_size")
         return out[0][1]
+
+    # ------------------------------------------------------------------
+    # Exact long-utterance path (JAX extractor.py:287-412)
+    # ------------------------------------------------------------------
+    def _exact_long_parts(self) -> Tuple[TDNNFrames, TDNNTail]:
+        """The frame-level and utterance-level halves of the loaded TDNN;
+        raises for another network or pooling."""
+        cfg = self.params.dict
+        if cfg.get("network_type", "tdnn") != "tdnn":
+            raise ValueError(
+                "exact long-utterance extraction requires the TDNN network "
+                "(network_type=%r)" % cfg.get("network_type"))
+        if cfg.get("pooling_type") != "statistics_pooling":
+            raise ValueError("exact long-utterance extraction requires statistics pooling "
+                             "(pooling_type=%r)" % cfg.get("pooling_type"))
+        tdnn = self.net.tdnn
+        return TDNNFrames(tdnn), TDNNTail(tdnn, cfg)
+
+    @torch.inference_mode()
+    def _chunk_sums(self, frames: TDNNFrames, piece: np.ndarray, n_valid: int):
+        """(count, sum, sum of squares) over the first ``n_valid`` output
+        frames of the frame layers on ``piece`` [T, D], summed in float32
+        on the device."""
+        h = frames(self._to_device(piece[None], self.feed_dtype))[0].to(torch.float32)
+        h = h[:n_valid]
+        return float(n_valid), torch.sum(h, dim=0), torch.sum(torch.square(h), dim=0)
+
+    def embed_long_exact(self, feature: np.ndarray) -> np.ndarray:
+        """Exact embedding of an utterance of any length, in O(chunk) memory.
+
+        Chunks of ``min(chunk_size, max(min_chunk_size, 4096))`` frames
+        overlap by the TDNN's context, so every output frame of the frame
+        layers is computed exactly once; the trailing short piece is padded
+        to a length bucket and its padded rows masked out. Each chunk's sums
+        are taken in float32 on the device and accumulated in float64 on the
+        host (a one-pass E[x^2] - mean^2 in float32 would cancel over long
+        inputs); then the utterance-level layers run on the pooled vector."""
+        frames, tail = self._exact_long_parts()
+        ctx = TDNN_TOTAL_CONTEXT
+        T = feature.shape[0]
+        if T <= ctx:
+            raise ValueError(
+                "utterance too short for the exact long path "
+                "(%d frames <= TDNN context %d)" % (T, ctx))
+        chunk = min(self.chunk_size, max(self.min_chunk_size, 4096))
+        step = chunk - ctx
+        count, s1, s2 = 0.0, None, None
+        start = 0
+        while start < T - ctx:
+            piece = np.asarray(feature[start:start + chunk], np.float32)
+            if piece.shape[0] < chunk:
+                padded = np.zeros((self._bucket_for(piece.shape[0]), piece.shape[1]), np.float32)
+                padded[:piece.shape[0]] = piece
+                c, a, b = self._chunk_sums(frames, padded, piece.shape[0] - ctx)
+            else:
+                c, a, b = self._chunk_sums(frames, piece, chunk - ctx)
+            a64 = a.cpu().numpy().astype(np.float64)
+            b64 = b.cpu().numpy().astype(np.float64)
+            count += c
+            s1 = a64 if s1 is None else s1 + a64
+            s2 = b64 if s2 is None else s2 + b64
+            start += step
+        mean = s1 / count
+        var = np.maximum(s2 / count - mean * mean, 0.0)
+        std = np.sqrt(np.where(var <= VAR2STD_EPSILON, VAR2STD_EPSILON, var))
+        pooled = np.concatenate([mean, std]).astype(np.float32)
+        with torch.inference_mode():
+            endpoints = tail(self._to_device(pooled[None], self.feed_dtype))
+            emb = endpoints[self.node][0].to(torch.float32).cpu().numpy()
+        if self.normalize:
+            emb = emb / np.sqrt(np.sum(np.square(emb)))
+        return emb

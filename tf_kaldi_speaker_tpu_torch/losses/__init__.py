@@ -1,6 +1,7 @@
-"""Loss zoo of the port: the margin-softmax family and its head."""
+"""Loss zoo of the port: the margin-softmax family, its head and the ring
+and MHE auxiliary terms."""
 
-from .head import LOSS_NAMES, STRUCTURAL_LOSSES, LossHead
+from .head import AUX_LOSSES, LOSS_NAMES, STRUCTURAL_LOSSES, LossHead
 from .margin import (
     amsoftmax_loss,
     arcsoftmax_loss,
@@ -12,6 +13,7 @@ from .margin import (
 )
 
 __all__ = [
+    "AUX_LOSSES",
     "LOSS_NAMES",
     "STRUCTURAL_LOSSES",
     "LossHead",

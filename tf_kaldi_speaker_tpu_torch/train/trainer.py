@@ -87,27 +87,29 @@ class XVectorModel(nn.Module):
         super().__init__()
         self.network = EntireNetwork(config, input_dim,
                                      config.get("network_type", "tdnn"), generator)
-        self.softmax = LossHead(loss_func, num_outputs, config,
-                                config.get("num_nodes_last_layer", 512), generator)
+        self.softmax = LossHead(loss_func, num_outputs, config, self.network.output_dim,
+                                generator)
 
     def forward(self, features, labels, step=0, margin_override=None, mask=None,
-                sample_weight=None):
+                sample_weight=None, aux_enabled=True):
         out, endpoints = self.network(features, mask)
-        loss, ep = self.softmax(out, labels, step, margin_override, sample_weight)
+        loss, ep = self.softmax(out, labels, step, margin_override, sample_weight,
+                                aux_enabled)
         endpoints.update(ep)
         return loss, endpoints
 
 
 def l2_regularization(named_params: Dict[str, torch.Tensor], weight_scale: float,
                       output_scale: float) -> torch.Tensor:
-    """TF-style kernel L2: scale * ||w||^2 / 2 over conv and dense kernels;
-    the loss head's output kernel uses ``output_weight_l2_regularizer``
-    (trainer.py:96-107)."""
+    """TF-style kernel L2: scale * ||w||^2 / 2 over conv and dense kernels
+    and the GhostVLAD centers; the loss head's output kernel uses
+    ``output_weight_l2_regularizer`` (trainer.py:96-107). BatchNorm, PReLU,
+    biases, the attention query and the ring radius are not regularized."""
     total = 0.0
     for name, w in named_params.items():
         if name.endswith("output_kernel"):
             total = total + 0.5 * output_scale * torch.sum(torch.square(w))
-        elif name.endswith(".weight"):
+        elif name.endswith((".weight", ".vlad_centers")):
             total = total + 0.5 * weight_scale * torch.sum(torch.square(w))
     return total
 
@@ -282,7 +284,11 @@ class Trainer:
         loss, endpoints = functional_call(model, p, (feats, labels), {"step": self.step})
         loss = loss.to(torch.float32)
         reg = l2_regularization(params, wreg, out_wreg)
-        total = loss + reg
+        # the self-attention pooling's head-diversity penalty (trainer.py:349)
+        penalty = endpoints.get("attention_penalty")
+        penalty = (torch.zeros((), device=loss.device) if penalty is None
+                   else penalty.to(torch.float32))
+        total = loss + reg + penalty
         leaves = list(params.values())
         grads = list(torch.autograd.grad(total, leaves))
         with torch.no_grad():
@@ -299,7 +305,8 @@ class Trainer:
             for b, old in zip(self._frozen_stats, frozen_stats):
                 b.copy_(old)
         self.step += 1
-        return {"loss": loss.detach(), "regularization_loss": reg.detach(), "accuracy": acc}
+        return {"loss": loss.detach(), "regularization_loss": reg.detach(),
+                "penalty_loss": penalty.detach(), "accuracy": acc}
 
     def train_step_raw(self, codes: torch.Tensor, headers: torch.Tensor,
                        labels: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
@@ -574,8 +581,8 @@ class Trainer:
                      (local_step + 1) / (time.time() - t0))
         if writer and gstep // summary_steps > (gstep - K) // summary_steps:
             # the JAX step's metrics, in the order jax.device_get gives them
-            m = dict(metrics, penalty_loss=torch.zeros(()),
-                     total_loss=metrics["loss"] + metrics["regularization_loss"])
+            m = dict(metrics, total_loss=metrics["loss"] + metrics["regularization_loss"]
+                     + metrics["penalty_loss"])
             writer.scalars(gstep, {k: float(m[k]) for k in sorted(m)})
             if cfg.get("save_histograms", True):
                 # per-variable histograms (reference trainer.py:431)
@@ -622,7 +629,7 @@ class Trainer:
         loss, _ = self.network_model.eval()(
             features.to(self.device), labels.to(self.device), self.step,
             margin_override=VALID_MARGIN_NEUTRAL.get(self.loss_type),
-            sample_weight=weights.to(self.device))
+            sample_weight=weights.to(self.device), aux_enabled=False)
         return loss
 
     def valid(self, data_dir: str, spklist: str, batch_type: str = "softmax",

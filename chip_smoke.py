@@ -67,7 +67,25 @@ Phases, each of which raises on failure:
    from each trained dir against a float32 CPU forward of its checkpoint
    (cosine >= 0.9999 per utterance); ``cli.extract --exact-long --chunk-size
    256`` on the streamed fisher dir against its whole-utterance embeddings;
-   the zoo paths' shapes replayed, as in 7.
+   the zoo paths' shapes replayed, as in 7;
+19. wav to trial scores, the recipe's evaluation path
+   (``recipes/voxceleb/v1/run.sh`` stages 1, 3 and 8): a corpus of 128
+   synthetic 16 kHz utterances of 2-10 s from 32 speakers (harmonic series
+   with each speaker's f0 and formants, pauses of digital silence or low
+   noise) through ``cli.make_mfcc --compress`` (``run.sh:55-57`` options,
+   dither 1), ``cli.compute_vad``, ``cli.prepare_feats`` and
+   ``cli.extract --device-pipe`` (``--cmvn --vad`` on the raw MFCC, no flags
+   on the prepared features, and a PLDA set of 256 x 4 synthetic feature
+   utterances) on the card, from the trained flagship's checkpoint in
+   float32 (the third main path: the dequant and the pooling forward must
+   launch); ``cli.score`` cosine, PLDA with ``--lda-dim 200``, PLDA with
+   ``--adapt-scp`` and cosine with AS-norm on every utterance pair; the
+   card's uncompressed MFCC against numpy ``mfcc`` (float32 rounding), its
+   VAD decisions against numpy's (equal); the same chain with ``--device
+   cpu``, and the card against it: features within one quantization step,
+   x-vectors by cosine, scores by their largest difference over their
+   spread, EER within one target trial, minDCF within one target and one
+   nontarget trial; each stage's time; the path's shapes replayed, as in 7.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -77,10 +95,13 @@ path's mix; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import contextlib
 import glob
+import io
 import json
 import os
 import random
+import re
 import shutil
 import signal
 import subprocess
@@ -501,6 +522,9 @@ def write_ark(root):
 
 
 def cosine(a, b):
+    """Cosine of two vectors, taken in float64 (a float32 dot product
+    alone would blur 1 - cosine below about 1e-7)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
@@ -1487,6 +1511,464 @@ def run_zoo(torch, root, train, valid, scp, streamed):
     return runs, summary
 
 
+# The wav-to-score phase (19): the recipe's evaluation path, wav -> MFCC ->
+# VAD -> CMVN/silence removal -> x-vectors -> scores, on a synthetic corpus.
+# Lengths are uniform over 2-10 s, a smoke-test range and not VoxCeleb1-O's
+# length distribution (its test utterances run from about 4 s to over two
+# minutes); at 128 utterances set-up dominates the stage rates printed.
+WAV_CORPUS = dict(num_speakers=32, utts_per_speaker=4, min_seconds=2.0, max_seconds=10.0,
+                  seed=6)
+# recipes/voxceleb/v1/run.sh:55-57 (30 ceps, 30 mel bins, 20-7600 Hz), dither 1
+MFCC_FLAGS = ["--num-ceps", "30", "--num-mel-bins", "30", "--low-freq", "20",
+              "--high-freq", "7600", "--dither", "1"]
+# the PLDA/LDA training set: 256 speakers keep LDA-200's between-class
+# scatter at full rank
+PLDA_SET = dict(num_speakers=256, utts_per_speaker=4, dim=FEAT_DIM, min_len=200, max_len=400,
+                seed=7, spk_offset=1000, spk_scale=1.0, chan_scale=1.0)
+LDA_DIM = 200  # recipes/voxceleb/v1/run.sh:188-196
+SCORE_WAYS = {
+    "cosine": ["--backend", "cosine"],
+    "plda_lda": ["--backend", "plda", "--lda-dim", str(LDA_DIM)],
+    "plda_lda_adapt": ["--backend", "plda", "--lda-dim", str(LDA_DIM), "--adapt-scp", "{test}"],
+    "cosine_asnorm": ["--backend", "cosine", "--cohort-scp", "{train}"],
+}
+# card chain against the CPU chain (both float32 forwards of one checkpoint):
+# every MFCC value within one float32 rounding of numpy's float64 result
+# (rtol 2^-22, atol 1e-5 near zero); embeddings min cosine; the largest
+# score difference over the CPU scores' spread; the EER within one target
+# trial; each minDCF within the cost of one target and one nontarget trial.
+# EMB_MIN_COSINE and SCORE_GAP sit between what the sound card chain reads
+# on an H100 (1 - cosine 2.8e-12, score gaps up to 3.68e-6 of the spread)
+# and what the lower-precision controls (CONTROLS) read there (TF32 1.05e-7
+# and 2.25e-4, bf16 2.54e-5 and 3.67e-3); PERF.md section 6 records them.
+MFCC_TOL = dict(rtol=2.0 ** -22, atol=1e-5)
+EMB_MIN_COSINE = 1.0 - 1e-9
+SCORE_GAP = 3e-5
+# the bounds' controls: the raw-MFCC x-vectors on the card with TF32 on
+# (cuDNN convs and matmuls), and from the bf16 checkpoint
+CONTROLS = ("tf32", "bf16")
+
+
+def write_wav_corpus(root):
+    """WAV_CORPUS as a wav data dir and the trials of every utterance pair."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir, write_trials
+
+    data = make_wav_data_dir(os.path.join(root, "wav_data"), **WAV_CORPUS)
+    with open(data["utt2spk"]) as f:
+        utt2spk = dict(line.split() for line in f)
+    data["trials"] = os.path.join(root, "wav_data", "trials")
+    data["labels"] = np.array([t for _, _, t in write_trials(data["trials"], utt2spk)], int)
+    return data
+
+
+def dcf_bounds(labels):
+    """The EER, minDCF08 and minDCF10 moves of one target trial (EER) and
+    of one target plus one nontarget trial (minDCF08 unnormalized, c_miss
+    10, p 0.01; minDCF10 normalized, p 0.001)."""
+    n_t, n_n = int(labels.sum()), int((1 - labels).sum())
+    return dict(eer=1.0 / n_t, min_dcf08=10 * 0.01 / n_t + 0.99 / n_n,
+                min_dcf10=1.0 / n_t + 0.999 / 0.001 / n_n)
+
+
+def float32_model(trained, root):
+    """The trained flagship's checkpoint with compute_dtype float32, so the
+    card and the CPU run the same float32 forward."""
+    model = os.path.join(root, "wav_model")
+    shutil.copytree(os.path.join(trained, "nnet"), os.path.join(model, "nnet"))
+    cfg_path = os.path.join(model, "nnet", "config.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    write_json(cfg_path, dict(cfg, compute_dtype="float32"))
+    return model
+
+
+def run_wav_chain(torch, data, plda_set, model, root, device):
+    """make_mfcc --compress -> compute_vad -> prepare_feats, then
+    cli.extract --device-pipe: --cmvn --vad on the raw MFCC, without flags
+    on the prepared features, and the PLDA set; every CLI on ``device``.
+    Returns the runs (drive's) by stage and the output paths."""
+    from tf_kaldi_speaker_tpu_torch.cli import compute_vad, extract, make_mfcc, prepare_feats
+
+    d = os.path.join(root, "wav_" + device)
+    dev = ["--device", device]
+    out = dict(mfcc=os.path.join(d, "mfcc"), egs=os.path.join(d, "egs"))
+    runs = {}
+
+    def stage(name, main_fn, argv):
+        runs[name] = drive(torch, main_fn, argv)
+        if runs[name]["rc"] != 0:
+            raise RuntimeError("%s on %s exited %d" % (name, device, runs[name]["rc"]))
+
+    stage("make_mfcc", make_mfcc.main, ["--compress"] + MFCC_FLAGS + dev
+          + [data["wav_scp"], out["mfcc"]])
+    shutil.copyfile(data["utt2spk"], os.path.join(out["mfcc"], "utt2spk"))
+    stage("compute_vad", compute_vad.main, dev + [os.path.join(out["mfcc"], "feats.scp"),
+                                                  out["mfcc"]])
+    stage("prepare_feats", prepare_feats.main, dev + [out["mfcc"], out["egs"]])
+    for name, flags, scp in (("xvector_raw", ["--cmvn", "--vad"], out["mfcc"]),
+                             ("xvector_egs", [], out["egs"]),
+                             ("xvector_plda", [], plda_set["data"])):
+        out[name] = os.path.join(d, name)
+        stage("extract_" + name[8:], extract.main, ["--device-pipe", "--batch-size", "32"]
+              + flags + dev + [model, "scp:" + os.path.join(scp, "feats.scp"),
+                               "ark,scp:%s.ark,%s.scp" % (out[name], out[name])])
+    return runs, out
+
+
+def score_ways(data, plda_set, outs):
+    """cli.score each of SCORE_WAYS on each chain's raw-MFCC x-vectors
+    (``outs``: chain -> run_wav_chain's paths), trials from every utterance
+    pair, the PLDA/LDA set (and the AS-norm cohort) from the chain's PLDA
+    set x-vectors. The calls run side by side in child processes with one
+    BLAS thread each (the PLDA EM is numpy on one core; threaded BLAS
+    gains nothing at 200 x 200), each timing its own call. Returns
+    {(chain, way): (scores, report, seconds)}."""
+    code = ("import sys, time; t = time.perf_counter(); "
+            "from tf_kaldi_speaker_tpu_torch.cli import score; rc = score.main(sys.argv[1:]); "
+            "print('SECONDS %.6f' % (time.perf_counter() - t)); sys.exit(rc)")
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = {}
+    try:
+        for chain, out in outs.items():
+            test, train = out["xvector_raw"] + ".scp", out["xvector_plda"] + ".scp"
+            for way, flags in SCORE_WAYS.items():
+                path = "%s.%s.scores" % (out["xvector_raw"], way)
+                argv = [a.format(test=test, train=train) for a in flags] + [
+                    "--enroll-scp", test, "--test-scp", test, "--trials", data["trials"],
+                    "--scores", path]
+                if "plda" in way:
+                    argv += ["--train-scp", train, "--train-utt2spk", plda_set["utt2spk"]]
+                procs[chain, way] = path, subprocess.Popen(
+                    [sys.executable, "-c", code] + argv, cwd=ROOT, env=env, text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        result = {}
+        for key, (path, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError("cli.score %s on the %s x-vectors exited %d:\n%s"
+                                   % (key[1], key[0], proc.returncode, stderr[-2000:]))
+            report, _, seconds = stdout.rpartition("SECONDS ")
+            result[key] = (np.loadtxt(path, usecols=2), report, float(seconds))
+        return result
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def check_mfcc_against_numpy(data, root):
+    """cli.make_mfcc on the card without --compress: every utterance's
+    float32 MFCC against the port's numpy ``mfcc`` with the seed it drew
+    (its index in wav.scp), within MFCC_TOL. Returns the max abs error and
+    the share of values not bit-equal."""
+    from tf_kaldi_speaker_tpu_torch.cli import make_mfcc
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp, read_wav_scp
+    from tf_kaldi_speaker_tpu_torch.ops.mfcc import MfccConfig, mfcc
+
+    d = os.path.join(root, "wav_mfcc_plain")
+    if make_mfcc.main(MFCC_FLAGS + ["--device", "cuda", data["wav_scp"], d]) != 0:
+        raise RuntimeError("cli.make_mfcc (uncompressed) exited non-zero")
+    got = dict(read_mat_scp(os.path.join(d, "feats.scp")))
+    cfg = MfccConfig(num_ceps=30, num_mel_bins=30, low_freq=20, high_freq=7600, dither=1.0)
+    worst, differ, total = 0.0, 0, 0
+    for seed, (utt, samples, _) in enumerate(read_wav_scp(data["wav_scp"])):
+        want = mfcc(samples, cfg, seed=seed)
+        if got[utt].shape != want.shape:
+            raise AssertionError("make_mfcc %s: shape %s, numpy %s" % (utt, got[utt].shape,
+                                                                      want.shape))
+        diff = np.abs(got[utt].astype(np.float64) - want)
+        if not (diff <= MFCC_TOL["atol"] + MFCC_TOL["rtol"] * np.abs(want)).all():
+            raise AssertionError("make_mfcc %s: max abs err %.3g beyond rtol %g / atol %g"
+                                 % (utt, float(diff.max()), MFCC_TOL["rtol"], MFCC_TOL["atol"]))
+        worst = max(worst, float(diff.max()))
+        differ += int((diff > 0).sum())
+        total += diff.size
+    if len(got) != len(data["utts"]):
+        raise AssertionError("make_mfcc wrote %d of %d utterances" % (len(got), len(data["utts"])))
+    print("cli.make_mfcc on the card (float64, dither 1) vs numpy mfcc, %d utterances, %d values: "
+          "max abs err %.3g (rtol %g, atol %g), %d values not bit-equal ok"
+          % (len(got), total, worst, MFCC_TOL["rtol"], MFCC_TOL["atol"], differ))
+    return worst, differ / total
+
+
+def check_vad_against_numpy(out):
+    """The card's vad.ark against the numpy VAD on the same (decoded)
+    features: every decision equal."""
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp, read_vec_flt_scp
+    from tf_kaldi_speaker_tpu_torch.ops.vad import compute_vad_energy
+
+    vad = dict(read_vec_flt_scp(os.path.join(out["mfcc"], "vad.scp")))
+    voiced = frames = 0
+    for utt, feats in read_mat_scp(os.path.join(out["mfcc"], "feats.scp")):
+        want = compute_vad_energy(feats)
+        if not np.array_equal(vad[utt], want):
+            raise AssertionError("compute_vad %s: %d decisions differ from numpy"
+                                 % (utt, int((vad[utt] != want).sum())))
+        voiced += int(want.sum())
+        frames += want.size
+    if not 0.2 < voiced / frames < 0.9:
+        raise AssertionError("VAD kept %d of %d frames: the corpus should hold both classes"
+                             % (voiced, frames))
+    print("cli.compute_vad on the card (float64) vs numpy compute_vad_energy: %d utterances, "
+          "%d frames, all decisions equal, %.1f%% voiced ok" % (len(vad), frames,
+                                                                100.0 * voiced / frames))
+
+
+def compare_arks(name, card_dir, cpu_dir):
+    """Two compressed feature dirs: the same utterances and frame counts,
+    and decoded matrices within one quantization step of each column.
+    Returns the max abs difference and the number of utterances whose
+    bytes differ."""
+    from tf_kaldi_speaker_tpu_torch.kio import read_codes_scp, read_mat_scp
+
+    with open(os.path.join(card_dir, "utt2num_frames")) as a, \
+            open(os.path.join(cpu_dir, "utt2num_frames")) as b:
+        if a.read() != b.read():
+            raise AssertionError("%s: utt2num_frames differ between card and CPU" % name)
+    cpu = {k: (c, h) for k, c, h in read_codes_scp(os.path.join(cpu_dir, "feats.scp"))}
+    cpu_mats = dict(read_mat_scp(os.path.join(cpu_dir, "feats.scp")))
+    worst, differ = 0.0, 0
+    for (k, codes, heads), (_, mat) in zip(read_codes_scp(os.path.join(card_dir, "feats.scp")),
+                                           read_mat_scp(os.path.join(card_dir, "feats.scp"))):
+        c, h = cpu[k]
+        if np.array_equal(codes, c) and np.array_equal(heads, h):
+            continue
+        differ += 1
+        p0, p25, p75, p100 = h
+        step = np.maximum.reduce([(p25 - p0) / 64, (p75 - p25) / 128, (p100 - p75) / 63])
+        diff = np.abs(mat - cpu_mats[k])
+        if not (diff <= step * (1 + 1e-6) + np.abs(heads - h).max()).all():
+            raise AssertionError("%s %s: card vs CPU beyond one quantization step (%.3g)"
+                                 % (name, k, float(diff.max())))
+        worst = max(worst, float(diff.max()))
+    print("%s: card vs CPU (--device cpu), %d utterances: %d differ in bytes, max abs diff of "
+          "the decoded features %.3g (<= one quantization step) ok"
+          % (name, len(cpu), differ, worst))
+    return worst, differ
+
+
+def make_mfcc_host_seconds(run):
+    """The seconds make_mfcc's run spent reading the wavs and drawing the
+    dither on the host, from its last log line."""
+    for _, msg in run["logged"]:
+        m = re.match(r"host seconds: reading the wavs ([0-9.]+), drawing the dither ([0-9.]+)$",
+                     msg)
+        if m:
+            return float(m.group(1)), float(m.group(2))
+    raise AssertionError("make_mfcc logged no host seconds")
+
+
+def run_controls(torch, data, out, cpu_out, cpu_cosine, model, trained, root):
+    """CONTROLS, each read as the card-vs-CPU check reads the sound chain:
+    the raw-MFCC x-vectors (``cli.extract --cmvn --vad --device-pipe`` on
+    the card) against the CPU chain's (min cosine), and their cosine scores
+    (``cli.score``) against the CPU's (largest difference over the
+    spread). "tf32": the float32 checkpoint with TF32 on; "bf16": the
+    trained checkpoint, whose forward is bf16. Nothing is asserted: the
+    readings show what the bounds would catch. Returns {control:
+    {one_minus_cosine, score_gap}}."""
+    from tf_kaldi_speaker_tpu_torch.cli import extract, score
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
+
+    backends = torch.backends
+    want = dict(read_vec_flt_scp(cpu_out["xvector_raw"] + ".scp"))
+    readings = {}
+    for control in CONTROLS:
+        path = os.path.join(root, "wav_control", control)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tf32 = control == "tf32"
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            rc = extract.main(["--device-pipe", "--batch-size", "32", "--cmvn", "--vad",
+                               "--device", "cuda", model if tf32 else trained,
+                               "scp:" + os.path.join(out["mfcc"], "feats.scp"),
+                               "ark,scp:%s.ark,%s.scp" % (path, path)])
+        finally:
+            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+        if rc != 0:
+            raise RuntimeError("cli.extract (%s control) exited %d" % (control, rc))
+        worst = min(cosine(e, want[k]) for k, e in read_vec_flt_scp(path + ".scp"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = score.main(["--backend", "cosine", "--enroll-scp", path + ".scp",
+                             "--test-scp", path + ".scp", "--trials", data["trials"],
+                             "--scores", path + ".scores"])
+        if rc != 0:
+            raise RuntimeError("cli.score (%s control) exited %d" % (control, rc))
+        gap = float(np.abs(np.loadtxt(path + ".scores", usecols=2) - cpu_cosine).max()
+                    / np.ptp(cpu_cosine))
+        readings[control] = dict(one_minus_cosine=1.0 - worst, score_gap=gap)
+        print("control %s vs the CPU chain: x-vectors 1 - min cosine %.3g (bound <= %.3g: %s), "
+              "cosine scores max |diff| / spread %.3g (bound <= %g: %s)"
+              % (control, 1.0 - worst, 1.0 - EMB_MIN_COSINE,
+                 "caught" if worst < EMB_MIN_COSINE else "NOT caught", gap, SCORE_GAP,
+                 "caught" if gap > SCORE_GAP else "NOT caught"))
+    return readings
+
+
+def batching_ab(torch, data, root):
+    """cli.make_mfcc --compress on the card over wav.scp as written (its
+    input-order batches) against a copy of wav.scp sorted by length (the
+    batches that bucketing by length would give the card: each padded to
+    about its shortest row), in turns written, sorted, sorted, written.
+    Returns the walls by kind."""
+    from tf_kaldi_speaker_tpu_torch.cli import make_mfcc
+
+    with open(data["wav_scp"]) as f:
+        lines = f.readlines()
+    sorted_scp = os.path.join(root, "wav_ab", "wav.scp")
+    os.makedirs(os.path.dirname(sorted_scp), exist_ok=True)
+    with open(sorted_scp, "w") as f:
+        f.writelines(sorted(lines, key=lambda line: os.path.getsize(line.split()[1])))
+    walls = {"written": [], "sorted": []}
+    for i, kind in enumerate(("written", "sorted", "sorted", "written")):
+        scp = data["wav_scp"] if kind == "written" else sorted_scp
+        run = drive(torch, make_mfcc.main, ["--compress"] + MFCC_FLAGS + [
+            "--device", "cuda", scp, os.path.join(root, "wav_ab", str(i))])
+        if run["rc"] != 0:
+            raise RuntimeError("cli.make_mfcc (%s wav.scp) exited %d" % (kind, run["rc"]))
+        walls[kind].append(run["wall"])
+    print("cli.make_mfcc --compress on the card (%s), turns written, sorted, sorted, written: "
+          "wav.scp as written (input-order batches) %s s, sorted by length %s s"
+          % (CARD, [round(w, 4) for w in walls["written"]],
+             [round(w, 4) for w in walls["sorted"]]))
+    return walls
+
+
+def run_wav_to_score(torch, root, trained):
+    """The wav-to-score phase (19). Returns the path's launches and shapes
+    and a summary."""
+    from tf_kaldi_speaker_tpu_torch.backend import compute_eer, min_dcf08, min_dcf10
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    t_phase = t0 = time.perf_counter()
+    data = write_wav_corpus(root)
+    plda_set = make_fake_data_dir(os.path.join(root, "plda_set"), **PLDA_SET)
+    model = float32_model(trained, root)
+    print("wav corpus: %d utterances of %d speakers, %.1f s of 16 kHz PCM16 audio, %d trials "
+          "(%d target); PLDA set %d x %d utterances of %d-%d frames; written in %.2f s"
+          % (len(data["utts"]), WAV_CORPUS["num_speakers"], data["seconds"],
+             len(data["labels"]), int(data["labels"].sum()), PLDA_SET["num_speakers"],
+             PLDA_SET["utts_per_speaker"], PLDA_SET["min_len"], PLDA_SET["max_len"],
+             time.perf_counter() - t0))
+
+    runs, out = run_wav_chain(torch, data, plda_set, model, root, "cuda")
+    launches, shapes = {}, {}
+    for run in runs.values():
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+            shapes.setdefault(name, collections.Counter()).update(run["shapes"][name])
+    check_launched("wav-to-score path (make_mfcc, compute_vad, prepare_feats, "
+                   "extract --device-pipe, float32)",
+                   dict(launches=launches, shapes=shapes),
+                   ["cm_dequantize", "masked_stats_pooling"])
+    # where make_mfcc's host time goes, as its own run timed it
+    read_s, dither_s = make_mfcc_host_seconds(runs["make_mfcc"])
+
+    mfcc_err, mfcc_differ = check_mfcc_against_numpy(data, root)
+    batching = batching_ab(torch, data, root)
+    check_vad_against_numpy(out)
+
+    t0 = time.perf_counter()
+    cpu_runs, cpu_out = run_wav_chain(torch, data, plda_set, model, root, "cpu")
+    cpu_s = time.perf_counter() - t0
+    scores = score_ways(data, plda_set, {"cuda": out, "cpu": cpu_out})
+    card_scores = {way: scores["cuda", way] for way in SCORE_WAYS}
+    cpu_scores = {way: scores["cpu", way] for way in SCORE_WAYS}
+    for way, (_, report, _) in card_scores.items():
+        print("cli.score %s on the card's x-vectors:\n  %s" % (way, report.strip().replace(
+            "\n", "\n  ")))
+    feat_gap = compare_arks("make_mfcc --compress", out["mfcc"], cpu_out["mfcc"])
+    with open(os.path.join(out["mfcc"], "vad.ark"), "rb") as a, \
+            open(os.path.join(cpu_out["mfcc"], "vad.ark"), "rb") as b:
+        vad_equal = a.read() == b.read()
+    print("compute_vad: card vad.ark %s the CPU's" % ("byte-equal to" if vad_equal else
+                                                     "DIFFERS from"))
+    prep_gap = compare_arks("prepare_feats", out["egs"], cpu_out["egs"])
+
+    worst_cos = 1.0
+    for name in ("xvector_raw", "xvector_egs", "xvector_plda"):
+        card = dict(read_vec_flt_scp(out[name] + ".scp"))
+        cpu = dict(read_vec_flt_scp(cpu_out[name] + ".scp"))
+        want_n = len(data["utts"]) if name != "xvector_plda" else (
+            PLDA_SET["num_speakers"] * PLDA_SET["utts_per_speaker"])
+        if sorted(card) != sorted(cpu) or len(card) != want_n:
+            raise AssertionError("%s: %d card and %d CPU embeddings, expected %d"
+                                 % (name, len(card), len(cpu), want_n))
+        for k, e in card.items():
+            if e.shape != (512,) or not np.isfinite(e).all():
+                raise AssertionError("%s %s: embedding shape %s or not finite"
+                                     % (name, k, e.shape))
+            worst_cos = min(worst_cos, cosine(e, cpu[k]))
+    if not worst_cos >= EMB_MIN_COSINE:
+        raise AssertionError("x-vectors card vs CPU: 1 - min cosine %.3g > %.3g"
+                             % (1.0 - worst_cos, 1.0 - EMB_MIN_COSINE))
+    print("x-vectors card vs CPU (float32 forwards of one checkpoint), raw --cmvn --vad, "
+          "prepared, PLDA set: 1 - min cosine %.3g (<= %.3g) ok"
+          % (1.0 - worst_cos, 1.0 - EMB_MIN_COSINE))
+
+    labels = data["labels"]
+    bounds = dcf_bounds(labels)
+    gaps = {}
+    for way in SCORE_WAYS:
+        s_card, s_cpu = card_scores[way][0], cpu_scores[way][0]
+        if s_card.shape != labels.shape or not np.isfinite(s_card).all():
+            raise AssertionError("scores %s: shape %s or not finite" % (way, s_card.shape))
+        rel = float(np.abs(s_card - s_cpu).max() / np.ptp(s_cpu))
+        g = dict(score_gap=rel,
+                 eer=abs(compute_eer(s_card, labels)[0] - compute_eer(s_cpu, labels)[0]),
+                 min_dcf08=abs(min_dcf08(s_card, labels) - min_dcf08(s_cpu, labels)),
+                 min_dcf10=abs(min_dcf10(s_card, labels) - min_dcf10(s_cpu, labels)))
+        if rel > SCORE_GAP or any(g[k] > bounds[k] + 1e-12 for k in bounds):
+            raise AssertionError("scores %s card vs CPU: %s beyond score gap %g and %s"
+                                 % (way, g, SCORE_GAP, bounds))
+        gaps[way] = dict(g, eer_card=compute_eer(s_card, labels)[0],
+                         min_dcf10_card=min_dcf10(s_card, labels))
+        print("scores %s, card vs CPU: max |diff| / spread %.3g (<= %g), EER %.4f%% vs %.4f%% "
+              "(gap %.4f%% <= %.4f%%), minDCF08 gap %.4g (<= %.4g), minDCF10 gap %.4g (<= %.4g) ok"
+              % (way, rel, SCORE_GAP, 100 * compute_eer(s_card, labels)[0],
+                 100 * compute_eer(s_cpu, labels)[0], 100 * g["eer"], 100 * bounds["eer"],
+                 g["min_dcf08"], bounds["min_dcf08"], g["min_dcf10"], bounds["min_dcf10"]))
+    controls = run_controls(torch, data, out, cpu_out, cpu_scores["cosine"][0], model, trained,
+                            root)
+
+    hours = data["seconds"] / 3600.0
+    mfcc_s = runs["make_mfcc"]["wall"]
+    n_emb = len(data["utts"])
+    n_plda = PLDA_SET["num_speakers"] * PLDA_SET["utts_per_speaker"]
+    times = dict(
+        audio_s=data["seconds"], mfcc_s=mfcc_s, mfcc_s_per_audio_hour=mfcc_s / hours,
+        wav_read_s=read_s, wav_read_share=read_s / mfcc_s, dither_s=dither_s,
+        dither_share=dither_s / mfcc_s, vad_s=runs["compute_vad"]["wall"],
+        prepare_feats_s=runs["prepare_feats"]["wall"],
+        extract_raw_emb_per_s=n_emb / runs["extract_raw"]["wall"],
+        extract_egs_emb_per_s=n_emb / runs["extract_egs"]["wall"],
+        extract_plda_emb_per_s=n_plda / runs["extract_plda"]["wall"],
+        **{"score_%s_s" % w: v[2] for w, v in card_scores.items()},
+        cpu_chain_s=cpu_s, cpu_mfcc_s=cpu_runs["make_mfcc"]["wall"],
+        cpu_mfcc_s_per_audio_hour=cpu_runs["make_mfcc"]["wall"] / hours)
+    print("wav-to-score stage times on the card (%s; smoke readings, set-up dominates at this "
+          "corpus size): make_mfcc --compress %.3f s for %.1f s of audio = %.2f s per hour of "
+          "audio (timed inside its run: reading the wavs %.3f s = %.1f%% of it, drawing the "
+          "dither %.3f s = %.1f%%); compute_vad %.3f s; prepare_feats %.3f s; cli.extract "
+          "--device-pipe %.1f emb/s raw --cmvn --vad, %.1f emb/s prepared, %.1f emb/s PLDA set; "
+          "cli.score %s s (8 calls side by side, one core each); the CPU chain (--device cpu, "
+          "through extraction) %.2f s, its make_mfcc "
+          "%.2f s per hour of audio; the phase %.2f s"
+          % (CARD, mfcc_s, data["seconds"], times["mfcc_s_per_audio_hour"], read_s,
+             100 * times["wav_read_share"], dither_s, 100 * times["dither_share"],
+             times["vad_s"], times["prepare_feats_s"], times["extract_raw_emb_per_s"],
+             times["extract_egs_emb_per_s"], times["extract_plda_emb_per_s"],
+             {w: round(v[2], 3) for w, v in card_scores.items()}, cpu_s,
+             times["cpu_mfcc_s_per_audio_hour"], time.perf_counter() - t_phase))
+    summary = dict(times, mfcc_max_abs_err=mfcc_err, mfcc_not_bit_equal=mfcc_differ,
+                   mfcc_card_vs_cpu=feat_gap, prepare_feats_card_vs_cpu=prep_gap,
+                   vad_card_equals_cpu=vad_equal, emb_min_cosine=worst_cos, score_gaps=gaps,
+                   controls=controls, make_mfcc_batching_walls=batching)
+    return launches, shapes, summary
+
+
 def main():
     import logging
 
@@ -1565,8 +2047,13 @@ def main():
         for name, counter in run["shapes"].items():
             zoo_shapes.setdefault(name, collections.Counter()).update(counter)
     replay_mix(torch, {k: v for k, v in zoo_shapes.items() if v}, rows, flush, prefix="zoo_mix_")
-    del flush
     print("zoo summary (%s): %s" % (CARD, json.dumps(zoo_summary)))
+
+    wav_launches, wav_shapes, wav_summary = run_wav_to_score(torch, WORK_DIR, trained)
+    paths["wav_to_score"] = wav_launches
+    replay_mix(torch, {k: v for k, v in wav_shapes.items() if v}, rows, flush, prefix="wav_mix_")
+    del flush
+    print("wav-to-score summary (%s): %s" % (CARD, json.dumps(wav_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

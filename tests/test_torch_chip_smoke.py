@@ -10,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -205,3 +206,92 @@ def test_group_times_of_a_single_epoch():
              ("posted", 16, 3.25)]
     groups, epoch_s = cs.group_times(marks, 0)
     assert groups == [2.0, 0.5] and epoch_s == 3.0
+
+
+def test_wav_phase_config():
+    """The wav-to-score phase: 128 utterances of 2-10 s from 32 speakers,
+    the recipe's MFCC options (run.sh:55-57) with dither 1, a PLDA set of
+    256 x 4 utterances of 200-400 frames, LDA to 200, and the four
+    scoring ways (cosine, PLDA + LDA, PLDA + adaptation, AS-norm)."""
+    cs = _chip_smoke()
+    assert cs.WAV_CORPUS == dict(num_speakers=32, utts_per_speaker=4, min_seconds=2.0,
+                                 max_seconds=10.0, seed=6)
+    flags = dict(zip(cs.MFCC_FLAGS[::2], cs.MFCC_FLAGS[1::2]))
+    assert flags == {"--num-ceps": "30", "--num-mel-bins": "30", "--low-freq": "20",
+                     "--high-freq": "7600", "--dither": "1"}
+    with open(os.path.join(ROOT, "recipes", "voxceleb", "v1", "run.sh")) as f:
+        assert "--num-ceps 30 --num-mel-bins 30 --low-freq 20 --high-freq 7600" in f.read()
+    assert (cs.PLDA_SET["num_speakers"], cs.PLDA_SET["utts_per_speaker"],
+            cs.PLDA_SET["min_len"], cs.PLDA_SET["max_len"]) == (256, 4, 200, 400)
+    assert cs.PLDA_SET["dim"] == cs.FEAT_DIM and cs.LDA_DIM == 200
+    assert cs.PLDA_SET["num_speakers"] - 1 >= cs.LDA_DIM  # full-rank between-class scatter
+    assert set(cs.SCORE_WAYS) == {"cosine", "plda_lda", "plda_lda_adapt", "cosine_asnorm"}
+    assert "--adapt-scp" in cs.SCORE_WAYS["plda_lda_adapt"]
+    assert "--cohort-scp" in cs.SCORE_WAYS["cosine_asnorm"]
+
+
+def test_dcf_bounds():
+    """One target trial moves the EER by 1/targets; the minDCF bounds add
+    one nontarget trial's cost at each operating point."""
+    cs = _chip_smoke()
+    labels = np.array([1] * 4 + [0] * 96)
+    b = cs.dcf_bounds(labels)
+    assert b["eer"] == pytest.approx(0.25)
+    assert b["min_dcf08"] == pytest.approx(10 * 0.01 / 4 + 0.99 / 96)
+    assert b["min_dcf10"] == pytest.approx(1 / 4 + 999 / 96)
+
+
+def test_wav_corpus_writer_and_trials(tmp_path, monkeypatch):
+    """The corpus writer of the phase (small here): PCM16 wavs of each
+    length at 16 kHz, wav.scp/utt2spk/spk2utt, every utterance with both
+    voiced frames and pauses for the VAD, speakers told apart by f0; the
+    trials hold every pair once, the targets those of one speaker."""
+    from tf_kaldi_speaker_tpu_torch.cli import compute_vad, make_mfcc
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp, read_wav
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "WAV_CORPUS", dict(cs.WAV_CORPUS, num_speakers=3,
+                                               utts_per_speaker=2, min_seconds=1.0,
+                                               max_seconds=1.5))
+    data = cs.write_wav_corpus(str(tmp_path))
+    assert len(data["utts"]) == 6 and 6.0 <= data["seconds"] <= 9.0
+    lines = open(data["wav_scp"]).read().split("\n")[:-1]
+    assert [line.split()[0] for line in lines] == data["utts"]
+    spk2utt = dict((l.split()[0], l.split()[1:]) for l in open(data["spk2utt"]))
+    assert spk2utt == {"spk%03d" % s: ["spk%03d_utt%03d" % (s, u) for u in range(2)]
+                       for s in range(3)}
+    for line in lines:
+        samples, rate = read_wav(line.split()[1])
+        assert rate == 16000 and 16000 <= len(samples) <= 24000
+        assert np.abs(samples).max() > 3000 and (np.abs(samples) < 20).mean() > 0.1
+    trials = [l.split() for l in open(data["trials"])]
+    assert len(trials) == len(data["labels"]) == 15
+    assert [t[2] == "target" for t in trials] == list(data["labels"].astype(bool))
+    assert sum(data["labels"]) == 3 and all(a < b for a, b, _ in trials)
+    assert all((a[:6] == b[:6]) == (lab == "target") for a, b, lab in trials)
+    mfcc_dir = str(tmp_path / "mfcc")
+    assert make_mfcc.main(cs.MFCC_FLAGS + ["--device", "cpu", data["wav_scp"], mfcc_dir]) == 0
+    assert compute_vad.main(["--device", "cpu", mfcc_dir + "/feats.scp", mfcc_dir]) == 0
+    for utt, vad in read_vec_flt_scp(mfcc_dir + "/vad.scp"):
+        assert 0.2 < vad.mean() < 0.95, (utt, vad.mean())
+
+
+def test_make_mfcc_host_seconds_from_its_log(tmp_path, caplog):
+    """make_mfcc's run times its own wav reads and dither draws and logs
+    them; the phase reads both back from that log line."""
+    import logging
+
+    from tf_kaldi_speaker_tpu_torch.cli import make_mfcc
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir
+
+    cs = _chip_smoke()
+    data = make_wav_data_dir(str(tmp_path / "wav"), num_speakers=2, utts_per_speaker=2,
+                             min_seconds=0.5, max_seconds=1.0, seed=3)
+    with caplog.at_level(logging.INFO):
+        assert make_mfcc.main(cs.MFCC_FLAGS + ["--device", "cpu", "--batch-size", "3",
+                                               data["wav_scp"], str(tmp_path / "mfcc")]) == 0
+    run = dict(logged=[(r.name, r.getMessage()) for r in caplog.records])
+    read_s, dither_s = cs.make_mfcc_host_seconds(run)
+    assert read_s > 0 and dither_s > 0
+    with pytest.raises(AssertionError, match="no host seconds"):
+        cs.make_mfcc_host_seconds(dict(logged=[("root", "Extracted MFCC for 4 utterances.")]))

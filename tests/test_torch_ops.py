@@ -247,3 +247,49 @@ def test_vad_matches_jax(context):
         if k:
             host = compute_vad_energy(x[i, :k], frames_context=context) > 0.5
             np.testing.assert_array_equal(got[i, :k], host)
+
+
+def test_launch_counter_is_exact_under_threads():
+    """8 threads x 10,000 counts through the wrappers' shared helper lose
+    no increment, in ``launches`` and in ``shapes``. The counters' ``+``
+    runs Python code here, so a thread can be switched out between reading
+    a count and storing it: without the helper's lock this loses most of
+    the increments."""
+    import collections
+    import sys
+    import threading
+
+    from tf_kaldi_speaker_tpu_torch.ops import _build
+
+    class SlowInt(int):
+        def __add__(self, other):
+            return SlowInt(int(self) + other)
+
+    class SlowCounter(collections.Counter):
+        def __getitem__(self, key):
+            return SlowInt(super().__getitem__(key))
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.shapes = SlowInt(0), SlowCounter()
+    start = threading.Barrier(8)
+
+    def hammer(t):
+        start.wait()
+        for _ in range(10_000):
+            _build.count_launch(wrapper, (t % 2, 3, 4), "float32")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as possible
+    try:
+        threads = [threading.Thread(target=hammer, args=(t,)) for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == 80_000
+    assert dict(wrapper.shapes) == {((0, 3, 4), "float32"): 40_000,
+                                    ((1, 3, 4), "float32"): 40_000}

@@ -151,9 +151,9 @@ def test_unported_train_paths_raise(corpus, tmp_path):
     cfg = dict(TINY, pool_sharded=True)
     t = Trainer(ParamsPlain(**cfg), str(tmp_path), dim=DIM, num_speakers=6, device="cpu")
     t.build("train", DIM, cfg["loss_func"], 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
         t.train(cm["data"], cm["spklist"], 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
         t.valid(cm["data"], cm["spklist"], batch_type="end2end")
 
 

@@ -1,9 +1,13 @@
-"""Verification metrics for validation: DET curve, EER, pairwise cosine EER.
+"""Verification metrics: EER, minDCF (08/10/12), DET curves.
 
-A copy of ``det_curve``, ``compute_eer`` and ``compute_cos_pairwise_eer``
-from ``tf_kaldi_speaker_tpu/backend/metrics.py`` (numpy only; the rest of
-that module, minDCF and the scoring back end, is not on the port's path
-yet). ``tests/test_torch_pool.py`` holds them equal to the originals.
+Replaces three external tools of the reference stack (SURVEY.md §2.4):
+Kaldi ``compute-eer``, ``sid/compute_min_dcf.py`` and the MATLAB DETware
+package (misc/DETware_v2.1). Pure numpy; exact sweep over score thresholds
+rather than interpolation-free approximations.
+
+Counterpart of ``tf_kaldi_speaker_tpu/backend/metrics.py``, whole (numpy
+only); ``tests/test_torch_scoring.py`` and ``tests/test_torch_pool.py`` hold
+it equal to the original.
 """
 
 from __future__ import annotations
@@ -56,6 +60,54 @@ def compute_eer(scores: np.ndarray, labels: np.ndarray) -> Tuple[float, float]:
     eer = p_miss[k - 1] + frac * (p_miss[k] - p_miss[k - 1])
     thresh = thresholds[k - 1] + frac * (thresholds[k] - thresholds[k - 1])
     return float(eer), float(thresh)
+
+
+def compute_min_dcf(
+    scores: np.ndarray,
+    labels: np.ndarray,
+    p_target: float = 0.01,
+    c_miss: float = 1.0,
+    c_fa: float = 1.0,
+) -> Tuple[float, float]:
+    """Minimum normalized detection cost (sid/compute_min_dcf.py equivalent).
+
+    Conventions: SRE08 uses p_target=0.01, c_miss=10, c_fa=1 (DETware
+    Get_DCF); SRE10 uses p_target=0.001, c_miss=c_fa=1; minDCF12 averages
+    p_target ∈ {0.01, 0.001} costs.
+
+    Returns (normalized min cost, score threshold of the minimizing DET
+    point) like the reference's sid/compute_min_dcf.py.
+    """
+    scores = np.asarray(scores, dtype=np.float64)
+    p_miss, p_fa = det_curve(scores, labels)
+    cost = c_miss * p_miss * p_target + c_fa * p_fa * (1.0 - p_target)
+    idx = int(np.argmin(cost))
+    denom = min(c_miss * p_target, c_fa * (1.0 - p_target))
+    # DET index i corresponds to a threshold between sorted_scores[i-1]
+    # and sorted_scores[i] (index 0 = accept everything).
+    sorted_scores = np.sort(scores)
+    thresholds = np.concatenate([[sorted_scores[0] - 1.0], sorted_scores])
+    return float(cost[idx] / denom), float(thresholds[idx])
+
+
+def min_dcf08(scores, labels) -> float:
+    """NIST SRE08 operating point (DETware Get_DCF: Cmiss=10, Cfa=1, Pt=0.01),
+    reported unnormalized like the reference's RESULTS.md numbers."""
+    p_miss, p_fa = det_curve(scores, labels)
+    cost = 10.0 * p_miss * 0.01 + 1.0 * p_fa * 0.99
+    return float(np.min(cost))
+
+
+def min_dcf10(scores, labels) -> float:
+    """NIST SRE10 operating point (Cmiss=Cfa=1, Pt=0.001), normalized."""
+    return compute_min_dcf(scores, labels, p_target=0.001, c_miss=1.0, c_fa=1.0)[0]
+
+
+def min_dcf12(scores, labels) -> float:
+    """NIST SRE12 core cost: average of Pt=0.01 and Pt=0.001 normalized DCFs."""
+    a = compute_min_dcf(scores, labels, p_target=0.01)[0]
+    b = compute_min_dcf(scores, labels, p_target=0.001)[0]
+    return float((a + b) / 2.0)
 
 
 def compute_cos_pairwise_eer(

@@ -20,7 +20,7 @@ speaker set); see the JAX module's docstring for the measured trade-off.
 Left out: the JAX module's 4 MB staging slices, which work around a
 high-latency host link (the card takes one copy per array), and
 ``ShardedDevicePool``, which comes with the parallelism slice (ROADMAP.md
-§1 item 10).
+§1 item 7).
 """
 
 from __future__ import annotations

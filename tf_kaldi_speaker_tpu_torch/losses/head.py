@@ -13,7 +13,7 @@ terms (``aux_loss_func``, ``head.py:140-179``):
 Margins can be overridden at call time (``margin_override``) and the aux
 terms switched off (``aux_enabled``): the trainer does both during
 validation. The triplet, GE2E and generalized-triplet losses are not ported
-yet (ROADMAP.md §1 item 8) and raise ``NotImplementedError``.
+yet (ROADMAP.md §1 item 3) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ class LossHead(nn.Module):
             raise NotImplementedError("Not implement %s loss" % loss_func)
         if loss_func not in SOFTMAX_FAMILY:
             raise NotImplementedError(
-                "loss %s is not ported yet (ROADMAP.md §1 item 8: the triplet, GE2E "
+                "loss %s is not ported yet (ROADMAP.md §1 item 3: the triplet, GE2E "
                 "and generalized-triplet losses)" % loss_func)
         self.aux = list(config.get("aux_loss_func", []))
         for aux_name in self.aux:

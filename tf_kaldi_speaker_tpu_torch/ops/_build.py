@@ -45,6 +45,7 @@ _ENTRY_POINTS = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -133,3 +134,12 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().tfks_error_string(err).decode()
         raise RuntimeError("%s: CUDA error %d (%s)" % (what, err, msg))
+
+
+def count_launch(wrapper, shape, dtype_name: str) -> None:
+    """Add one launch to a kernel wrapper's ``launches`` and to its
+    ``shapes[(shape, dtype_name)]``, under one lock: server threads launch
+    at once, and ``+= 1`` on an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.shapes[shape, dtype_name] += 1

@@ -69,8 +69,7 @@ def cm_dequantize(codes: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
         err = lib.tfks_cm_dequantize(
             codes.data_ptr(), headers.data_ptr(), out.data_ptr(), b, l, d, stream)
     _build.check(err, "cm_dequantize")
-    cm_dequantize.launches += 1
-    cm_dequantize.shapes[(b, l, d), "uint8"] += 1
+    _build.count_launch(cm_dequantize, (b, l, d), "uint8")
     return out
 
 

@@ -92,8 +92,7 @@ def _stats_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         err = getattr(lib, _KERNELS[x.dtype])(
             x.data_ptr(), mask.data_ptr(), out.data_ptr(), b, l, d, stream)
     _build.check(err, "masked_stats_pooling")
-    masked_stats_pooling.launches += 1
-    masked_stats_pooling.shapes[(b, l, d), str(x.dtype)[6:]] += 1
+    _build.count_launch(masked_stats_pooling, (b, l, d), str(x.dtype)[6:])
     return out
 
 
@@ -127,8 +126,7 @@ def masked_stats_pooling_backward(
             x.data_ptr(), mask.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(),
             b, l, d, stream)
     _build.check(err, what)
-    masked_stats_pooling_backward.launches += 1
-    masked_stats_pooling_backward.shapes[(b, l, d), str(x.dtype)[6:]] += 1
+    _build.count_launch(masked_stats_pooling_backward, (b, l, d), str(x.dtype)[6:])
     return gx
 
 

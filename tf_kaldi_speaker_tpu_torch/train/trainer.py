@@ -41,8 +41,8 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
   :meth:`Trainer.train_tune_lr` (``:1268-1317``).
 
 Not ported, and refused where a config asks for them: ``ShardedDevicePool``
-(``pool_sharded``, multi-card, ROADMAP.md §1 item 10) and the end2end
-validation (ROADMAP.md §1 item 8).
+(``pool_sharded``, multi-card, ROADMAP.md §1 item 7) and the end2end
+validation (ROADMAP.md §1 item 3).
 """
 
 from __future__ import annotations
@@ -426,7 +426,7 @@ class Trainer:
             if bool(cfg.get("pool_sharded", False)):
                 raise NotImplementedError(
                     "pool_sharded (ShardedDevicePool, multi-card) is not ported yet "
-                    "(ROADMAP.md §1 item 10)")
+                    "(ROADMAP.md §1 item 7)")
             groups = self._pool_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
         else:
             groups = self._stream_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
@@ -639,7 +639,7 @@ class Trainer:
         (reference trainer.py:592-706). Returns (loss, embeddings, labels)."""
         if batch_type != "softmax":
             raise NotImplementedError(
-                "batch_type %r validation is not ported yet (ROADMAP.md §1 item 8, "
+                "batch_type %r validation is not ported yet (ROADMAP.md §1 item 3, "
                 "with the end2end losses)" % batch_type)
         cfg = self.params.dict
         batch_size = int(cfg.get("num_speakers_per_batch", 64)) * int(

@@ -85,7 +85,38 @@ Phases, each of which raises on failure:
    cpu``, and the card against it: features within one quantization step,
    x-vectors by cosine, scores by their largest difference over their
    spread, EER within one target trial, minDCF within one target and one
-   nontarget trial; each stage's time; the path's shapes replayed, as in 7.
+   nontarget trial; each stage's time; the path's shapes replayed, as in 7;
+20. augmentation, the recipe's stage 2: 8 synthetic RIRs of 4,000-16,000
+   samples and MUSAN-like noise, music and speech sources;
+   ``cli.augment_data`` on the card in the four modes with the recipe's
+   seeds, SNRs and babble counts over the 128 utterances of 19; the card's
+   float64 reverb (``reverberate_torch``) against numpy's ``reverberate`` on
+   16 of them within 1e-12 of each row's peak, and the int16 samples the CLI
+   wrote against numpy's (the count that differ); the noise, music and
+   babble wavs byte-equal to the numpy copies'; seconds per hour of audio of
+   each mode, and of np.convolve on the same host;
+21. the recipe: ``tf_kaldi_speaker_tpu_torch/recipes/voxceleb/v1/run.sh``
+   stages 0-8, one bash run a stage, on synthetic VoxCeleb1 and VoxCeleb2
+   corpus trees of real wavs (80 speakers x 4 clips) with the sources of
+   20, training with the shipped ``tdnn_amsoftmax_m0.20_linear_bn_1e-2.json``
+   at full width and fine-tuning with ``_mhe0.01.json``, cut as
+   ``tests/test_recipe_e2e.py`` cuts the JAX recipe (epochs, steps,
+   validation batches, checkpoint and summary cadence; stage 4's counts and
+   stage 8's LDA width on a patched copy of the script); every CLI's
+   process reports its kernel launches at its exit (``cm_dequantize`` must
+   launch in stages 5 and 6); the augmented copies of all four kinds in
+   ``train_combined``, both models, both score files and their EERs; each
+   stage's time; the path's shapes replayed, as in 7;
+22. the triplet family: ``cli.train`` at the flagship's widths (bf16, fused
+   pooling, device pool) with ``angular_triplet_loss`` ("hard", AM flavour,
+   margin 0.2) over 16 speakers x 4 segments and ``batch_type: end2end``
+   validation at 8 x 4, 16 steps and a checkpoint (all three kernels must
+   launch); a profiler pass over 8 steps; a float32 step on the card
+   against the CPU's; ``generalized_angular_triplet_loss`` with "average"
+   centers for an epoch of 8 steps and a ``--cont`` epoch that restores the
+   centers bit for bit; ``cli.compute_gae2e_loss`` on the triplet model's
+   x-vectors on the card against the CPU; the path's shapes replayed, as in
+   7.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -1214,37 +1245,49 @@ def _trainer_at(torch, model, device, compute_dtype):
     return t
 
 
-def _pool_group(torch, train, device, group, length, seed):
+def _pool_group(torch, train, device, group, length, seed, cfg=None):
+    """``group`` pool batches of ``cfg``'s speakers x segments (TRAIN's by
+    default) at ``length`` frames."""
     from tf_kaldi_speaker_tpu_torch.data.device_pool import DevicePool, gather_chunks
 
+    cfg = cfg or TRAIN
     pool = DevicePool(train["data"], train["spklist"], device=device, seed=seed)
     pool.stage()
     starts, utts, labels = (torch.from_numpy(a).to(device) for a in pool.sample_group(
-        random.Random(seed), group, TRAIN["num_speakers_per_batch"], 1, length))
+        random.Random(seed), group, cfg["num_speakers_per_batch"],
+        cfg.get("num_segments_per_speaker", 1), length))
     batches = [gather_chunks(pool.frames, pool.headers, starts[i], utts[i], length)
                + (labels[i],) for i in range(group)]
     pool.close()
     return batches
 
 
-def profile_train_group(torch, model, train):
-    """One torch.profiler pass over a group of 8 bf16 pool steps (after one
-    group of warm-up): the device's busy and idle share of the host's wall
-    time, and the kernels that take most of the device time."""
+def profile_pool_steps(torch, model, train, cfg, seed):
+    """One torch.profiler pass over a group of 8 bf16 steps of ``cfg``'s
+    pool batches from ``model``'s state, after the same 8 as warm-up: the
+    host's wall, the device's busy seconds, its event count and its time by
+    kernel name."""
     t = _trainer_at(torch, model, "cuda", "bfloat16")
-    batches = _pool_group(torch, train, "cuda", TRAIN["steps_per_dispatch"], 296, 3)
+    batches = _pool_group(torch, train, "cuda", 8, 296, seed, cfg)
     for codes, hdr, lab in batches:
-        t.train_step_raw(codes, hdr, lab, TRAIN["learning_rate"])
+        t.train_step_raw(codes, hdr, lab, cfg["learning_rate"])
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for codes, hdr, lab in batches:
-            t.train_step_raw(codes, hdr, lab, TRAIN["learning_rate"])
+            t.train_step_raw(codes, hdr, lab, cfg["learning_rate"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_s, n_events, by_name = device_busy(torch, prof)
+    return (wall,) + device_busy(torch, prof)
+
+
+def profile_train_group(torch, model, train):
+    """One torch.profiler pass over a group of 8 bf16 pool steps (after one
+    group of warm-up): the device's busy and idle share of the host's wall
+    time, and the kernels that take most of the device time."""
+    wall, busy_s, n_events, by_name = profile_pool_steps(torch, model, train, TRAIN, 3)
     if not n_events:
         print("profile: no device events in the trace; device idle share not measured")
         return None
@@ -1836,8 +1879,8 @@ def batching_ab(torch, data, root):
 
 
 def run_wav_to_score(torch, root, trained):
-    """The wav-to-score phase (19). Returns the path's launches and shapes
-    and a summary."""
+    """The wav-to-score phase (19). Returns the path's launches and shapes,
+    a summary and the wav corpus."""
     from tf_kaldi_speaker_tpu_torch.backend import compute_eer, min_dcf08, min_dcf10
     from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
     from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
@@ -1966,6 +2009,670 @@ def run_wav_to_score(torch, root, trained):
                    mfcc_card_vs_cpu=feat_gap, prepare_feats_card_vs_cpu=prep_gap,
                    vad_card_equals_cpu=vad_equal, emb_min_cosine=worst_cos, score_gaps=gaps,
                    controls=controls, make_mfcc_batching_walls=batching)
+    return launches, shapes, summary, data
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: augmentation (recipes/voxceleb/v1/run.sh stage 2)
+# ---------------------------------------------------------------------------
+# 8 synthetic RIRs of 4,000-16,000 samples (a direct path and a decaying
+# noisy tail): a smoke choice, sourced from nothing (RIRS_NOISES' simulated
+# rooms are 1 s at 16 kHz); MUSAN-like noise, music and speech sources
+AUG_SOURCES = dict(rirs=8, rir_len=(4000, 16000), noise=6, music=6, speech_speakers=4,
+                   seed=21)
+# recipes/voxceleb/v1/run.sh:77-95: each mode's seed, SNRs and babble counts
+AUG_MODES = {
+    "reverb": (["--seed", "1"], "rirs"),
+    "noise": (["--seed", "2", "--snr", "15:10:5:0"], "noise"),
+    "music": (["--seed", "3", "--snr", "15:10:8:5"], "music"),
+    "babble": (["--seed", "4", "--snr", "20:17:15:13", "--num-babble-choices", "3:4:5:6:7"],
+               "speech"),
+}
+# the card's float64 reverb against the numpy copy on the first utterances
+# (np.convolve is a direct product: slow), within 1e-12 of each row's peak
+AUG_CHECK_UTTS = 16
+REVERB_RTOL = 1e-12
+
+
+def _shaped_noise(rng, n, slope):
+    """``n`` samples of Gaussian noise with a 1/f^slope spectrum, in int16
+    range."""
+    nfft = 1 << (n - 1).bit_length()
+    f = np.fft.rfftfreq(nfft, 1.0 / 16000)
+    x = np.fft.irfft(np.fft.rfft(rng.randn(nfft)) / np.maximum(f, 20.0) ** slope, nfft)[:n]
+    return np.round(x / np.abs(x).max() * rng.uniform(3000, 12000))
+
+
+def _music(rng, n):
+    """``n`` samples of chords: three notes with four harmonics each,
+    changing every 0.3-1 s, in int16 range."""
+    t = np.arange(n) / 16000.0
+    out, pos = np.zeros(n), 0
+    while pos < n:
+        seg = min(int(rng.uniform(0.3, 1.0) * 16000), n - pos)
+        env = np.exp(-np.arange(seg) / (seg * 0.6))
+        for f0 in 110.0 * 2.0 ** (rng.randint(0, 36, 3) / 12.0):
+            for h in range(1, 5):
+                out[pos:pos + seg] += env * np.sin(2 * np.pi * f0 * h * t[pos:pos + seg]) / h
+        pos += seg
+    return np.round(out / np.abs(out).max() * 10000)
+
+
+def write_aug_sources(root):
+    """The RIRs and the noise, music and speech sources, each as a wav.scp
+    under ``root``; returns {kind: wav.scp path}."""
+    from tf_kaldi_speaker_tpu_torch.kio import write_wav
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir
+
+    cfg = AUG_SOURCES
+    rng = np.random.RandomState(cfg["seed"])
+    scps = {}
+
+    def write(kind, items):
+        d = os.path.join(root, kind)
+        os.makedirs(d, exist_ok=True)
+        lines = []
+        for name, x in items:
+            path = os.path.join(d, name + ".wav")
+            write_wav(path, x, 16000)
+            lines.append("%s %s" % (name, path))
+        scps[kind] = os.path.join(d, "wav.scp")
+        with open(scps[kind], "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    rirs = []
+    for i in range(cfg["rirs"]):
+        n = int(rng.randint(cfg["rir_len"][0], cfg["rir_len"][1] + 1))
+        delay = int(rng.randint(0, 240))
+        rir = 0.4 * rng.randn(n) * np.exp(-np.arange(n) / (n * rng.uniform(0.08, 0.25)))
+        rir[:delay] = 0.0
+        rir[delay] = 1.0  # the direct path
+        rirs.append(("rir%d" % i, np.round(rir / np.abs(rir).max() * 20000)))
+    write("rirs", rirs)
+    write("noise", [("noise%d" % i, _shaped_noise(rng, int(rng.uniform(8, 15) * 16000),
+                                                  rng.uniform(0.0, 1.5)))
+                    for i in range(cfg["noise"])])
+    write("music", [("music%d" % i, _music(rng, int(rng.uniform(10, 20) * 16000)))
+                    for i in range(cfg["music"])])
+    speech = make_wav_data_dir(os.path.join(root, "speech"), num_speakers=cfg["speech_speakers"],
+                               utts_per_speaker=2, min_seconds=10.0, max_seconds=20.0,
+                               seed=cfg["seed"] + 1)
+    scps["speech"] = speech["wav_scp"]
+    return scps
+
+
+def _scp_entries(path):
+    with open(path) as f:
+        return [line.strip().split(" ", 1) for line in f if line.strip()]
+
+
+def _mono(x):
+    return x[:, 0] if x.ndim > 1 else x
+
+
+def replay_host_mode(mode, data, src_scp, out):
+    """The noise, music or babble mode with the numpy copies, drawing as
+    cli.augment_data draws (keep-frac 1: no keep draw); each wav it writes
+    byte-equal to the one the CLI wrote under ``out``. Returns the count."""
+    from tf_kaldi_speaker_tpu_torch.data.augment import add_babble, add_noise
+    from tf_kaldi_speaker_tpu_torch.kio import read_wav, write_wav
+
+    args = AUG_MODES[mode][0]
+    rng = np.random.RandomState(int(args[1]))
+    snrs = [float(s) for s in args[3].split(":")]
+    counts = [int(c) for c in args[5].split(":")] if mode == "babble" else None
+    srcs = [rx for _, rx in _scp_entries(src_scp)]
+    scratch = os.path.join(out, "replay.wav")
+    for utt, rx in _scp_entries(data["wav_scp"]):
+        sig = _mono(read_wav(rx)[0])
+        if mode == "babble":
+            n_bab = int(rng.choice(counts))
+            picked = [_mono(read_wav(srcs[rng.randint(len(srcs))])[0]) for _ in range(n_bab)]
+            y = add_babble(sig, picked, snr_db=float(rng.choice(snrs)), rng=rng)
+        else:
+            y = add_noise(sig, _mono(read_wav(srcs[rng.randint(len(srcs))])[0]),
+                          snr_db=float(rng.choice(snrs)), rng=rng)
+        write_wav(scratch, y, 16000)
+        with open(scratch, "rb") as a, open(os.path.join(out, "wav", "%s-%s.wav" % (utt, mode)),
+                                            "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("%s %s: the CLI's wav differs from the numpy copy's"
+                                     % (mode, utt))
+    os.remove(scratch)
+    return len(_scp_entries(data["wav_scp"]))
+
+
+def check_reverb(torch, data, rir_scp, out, device="cuda"):
+    """The first AUG_CHECK_UTTS utterances with the RIRs that the reverb
+    mode drew: ``reverberate_torch`` on the card in float64 against numpy's
+    ``reverberate`` (max |diff| <= REVERB_RTOL x max |y| per row), and the
+    int16 samples the CLI wrote against numpy's truncation of its result
+    (the count that differ); the seconds each took."""
+    from tf_kaldi_speaker_tpu_torch.cli._frontend import pad_rows
+    from tf_kaldi_speaker_tpu_torch.data.augment import reverberate, reverberate_torch
+    from tf_kaldi_speaker_tpu_torch.kio import read_wav
+
+    rng = np.random.RandomState(int(AUG_MODES["reverb"][0][1]))
+    rirs = [rx for _, rx in _scp_entries(rir_scp)]
+    items = []
+    for utt, rx in _scp_entries(data["wav_scp"])[:AUG_CHECK_UTTS]:
+        rir = read_wav(rirs[rng.randint(len(rirs))])[0]
+        items.append((utt, _mono(read_wav(rx)[0]), _mono(rir)))
+    t0 = time.perf_counter()
+    want = [reverberate(sig, rir) for _, sig, rir in items]
+    numpy_s = time.perf_counter() - t0
+    sigs, sig_lens = pad_rows([it[1] for it in items], np.float64)
+    rir_pad, rir_lens = pad_rows([it[2] for it in items], np.float64)
+
+    def card():
+        return reverberate_torch(torch.from_numpy(sigs).to(device), torch.from_numpy(sig_lens),
+                                 torch.from_numpy(rir_pad).to(device),
+                                 torch.from_numpy(rir_lens)).cpu().numpy()
+
+    card()
+    t0 = time.perf_counter()
+    got = card()
+    card_s = time.perf_counter() - t0
+    worst, differ, samples = 0.0, 0, 0
+    for i, ((utt, sig, _), w) in enumerate(zip(items, want)):
+        rel = float(np.abs(got[i, :len(sig)] - w).max() / np.abs(w).max())
+        worst = max(worst, rel)
+        if not rel <= REVERB_RTOL:
+            raise AssertionError("reverb %s: card float64 %.3g of the peak from numpy (> %g)"
+                                 % (utt, rel, REVERB_RTOL))
+        written = read_wav(os.path.join(out, "wav", utt + "-reverb.wav"))[0]
+        differ += int(np.sum(written != np.clip(w, -32768, 32767).astype("<i2")))
+        samples += len(sig)
+    audio_s = samples / 16000.0
+    print("reverb, %d utterances (%.1f s of audio, RIRs of %s samples): card float64 "
+          "reverberate_torch vs numpy reverberate max |diff| %.3g of the peak (<= %g) ok; int16 "
+          "samples the CLI wrote that differ from numpy's truncation: %d of %d; numpy "
+          "(np.convolve, one host core) %.3f s = %.1f s per hour of audio, the card's batch "
+          "(copies in and out included) %.4f s = %.3f s per hour of audio (%s)"
+          % (len(items), audio_s, sorted(int(n) for n in rir_lens), worst, REVERB_RTOL, differ,
+             samples, numpy_s, numpy_s * 3600 / audio_s, card_s, card_s * 3600 / audio_s, CARD))
+    return dict(reverb_max_rel_err=worst, reverb_int16_differ=differ, reverb_check_samples=samples,
+                numpy_reverb_s_per_audio_hour=numpy_s * 3600 / audio_s,
+                card_reverb_batch_s_per_audio_hour=card_s * 3600 / audio_s)
+
+
+def reverb_log_seconds(run):
+    """The audio and convolution seconds that cli.augment_data --mode reverb
+    logged."""
+    for _, msg in run["logged"]:
+        m = re.match(r"reverb: ([0-9.]+) s of audio, ([0-9.]+) s in the convolutions", msg)
+        if m:
+            return float(m.group(1)), float(m.group(2))
+    raise AssertionError("augment_data --mode reverb logged no convolution seconds")
+
+
+def run_augmentation(torch, root, data, device="cuda"):
+    """Phase 20: cli.augment_data on the card (``device``) in the four
+    recipe modes over the wav corpus; the checks against the numpy copies.
+    Returns the sources' wav.scp paths, the launches and a summary."""
+    from tf_kaldi_speaker_tpu_torch.cli import augment_data
+
+    t_phase = time.perf_counter()
+    srcs = write_aug_sources(os.path.join(root, "aug_sources"))
+    hours = data["seconds"] / 3600.0
+    summary, launches = {}, collections.Counter()
+    for mode, (args, kind) in AUG_MODES.items():
+        out = os.path.join(root, "aug_" + mode)
+        run = drive(torch, augment_data.main, ["--mode", mode] + args + [
+            "--aug-wav-scp", srcs[kind], "--device", device, data["wav_scp"], data["utt2spk"],
+            out])
+        if run["rc"] != 0:
+            raise RuntimeError("cli.augment_data --mode %s exited %d" % (mode, run["rc"]))
+        launches.update(run["launches"])
+        written = len(_scp_entries(os.path.join(out, "wav.scp")))
+        if written != len(data["utts"]):
+            raise AssertionError("%s: %d of %d utterances written" % (mode, written,
+                                                                     len(data["utts"])))
+        summary["%s_s_per_audio_hour" % mode] = run["wall"] / hours
+        if mode == "reverb":
+            audio_s, conv_s = reverb_log_seconds(run)
+            summary.update(reverb_conv_s=conv_s, reverb_wall_s=run["wall"])
+            summary.update(check_reverb(torch, data, srcs["rirs"], out, device))
+            print("cli.augment_data --mode reverb on the card (%s): %.1f s of audio in %.3f s = "
+                  "%.2f s per hour of audio; the convolutions (batches of 64, copies in and out "
+                  "included) %.3f s of it, the rest the host's wav reads and writes"
+                  % (CARD, audio_s, run["wall"], run["wall"] / hours, conv_s))
+        else:
+            replay_host_mode(mode, data, srcs[kind], out)
+            print("cli.augment_data --mode %s (%s, host numpy): %.3f s = %.2f s per hour of "
+                  "audio; every wav byte-equal to the numpy copy's ok"
+                  % (mode, CARD, run["wall"], run["wall"] / hours))
+    print("augmentation phase: %.2f s" % (time.perf_counter() - t_phase))
+    return srcs, dict(launches), summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the recipe (tf_kaldi_speaker_tpu_torch/recipes/voxceleb/v1/run.sh)
+# ---------------------------------------------------------------------------
+RECIPE_SCRIPT = os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "voxceleb", "v1",
+                             "run.sh")
+# synthetic voices as a VoxCeleb1 tree (speakers 0-39 dev, 40-47 named in the
+# verification list) and a VoxCeleb2 tree (48-75 dev, 76-79 test), 2 videos
+# x 2 clips each, 4.5-8 s; the sizes are a smoke choice (VoxCeleb1 has 1,251
+# speakers, VoxCeleb2 6,112)
+RECIPE_CORPUS = dict(num_speakers=80, utts_per_speaker=4, min_seconds=4.5, max_seconds=8.0,
+                     seed=8)
+RECIPE_SPLIT = dict(vox1_dev=range(0, 40), vox1_test=range(40, 48), vox2_dev=range(48, 76),
+                    vox2_test=range(76, 80))
+# what tests/test_recipe_e2e.py cuts of the recipe: the configs' epochs,
+# steps, validation batches, checkpoint and summary cadence ...
+RECIPE_CUTS = dict(num_epochs=1, num_steps_per_epoch=16, valid_max_iterations=2,
+                   save_checkpoints_steps=16, save_summary_steps=16, show_training_progress=8)
+# ... and, on a patched copy of the script, stage 4's utterance and
+# validation counts and stage 8's LDA width (72 training speakers)
+RECIPE_SCRIPT_CUTS = (("--min-num-utts 8", "--min-num-utts 2"),
+                      ("--valid-speakers 200 --valid-utts 5", "--valid-speakers 8 --valid-utts 2"),
+                      ("--lda-dim 200", "--lda-dim 32"))
+# run.sh's `$py` becomes this runner: python -m <module> in a fresh process,
+# which at its exit appends the process's kernel launch counts to a log
+LAUNCH_RUNNER = '''"""python -m MODULE ARGS..., then append this process's kernel launch
+and shape counts (zero where a wrapper was never imported) to the JSON-lines
+file named by TFKS_LAUNCH_LOG."""
+import atexit
+import json
+import os
+import runpy
+import sys
+
+WRAPPERS = {"cm_dequantize": ("tf_kaldi_speaker_tpu_torch.ops.cm_dequant", "cm_dequantize"),
+            "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
+                                     "masked_stats_pooling"),
+            "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
+                                              "masked_stats_pooling_backward")}
+MODULE = sys.argv[1]
+
+
+def dump():
+    rec = {"module": MODULE, "launches": {}, "shapes": {}}
+    for name, (mod, attr) in WRAPPERS.items():
+        fn = getattr(sys.modules.get(mod), attr, None)
+        rec["launches"][name] = fn.launches if fn is not None else 0
+        rec["shapes"][name] = ([[list(s), d, n] for (s, d), n in fn.shapes.items()]
+                               if fn is not None else [])
+    with open(os.environ["TFKS_LAUNCH_LOG"], "a") as f:
+        f.write(json.dumps(rec) + "\\n")
+
+
+atexit.register(dump)
+sys.argv = sys.argv[1:]
+runpy.run_module(MODULE, run_name="__main__", alter_sys=True)
+'''
+
+
+def write_vox_trees(root):
+    """RECIPE_CORPUS as VoxCeleb1 (consolidated wav layout) and VoxCeleb2
+    (dev and test, wav layout) corpus trees with a verification list of
+    every pair of the test speakers' clips; returns the two roots and the
+    seconds of audio."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir
+
+    made = make_wav_data_dir(os.path.join(root, "voices"), **RECIPE_CORPUS)
+    vox1, vox2 = os.path.join(root, "vox1"), os.path.join(root, "vox2")
+    parts = dict(vox1_dev=os.path.join(vox1, "wav"), vox1_test=os.path.join(vox1, "wav"),
+                 vox2_dev=os.path.join(vox2, "dev", "wav"),
+                 vox2_test=os.path.join(vox2, "test", "wav"))
+    test_clips = []
+    for part, speakers in RECIPE_SPLIT.items():
+        for s in speakers:
+            spk = "id%05d" % ((10000 if part.startswith("vox1") else 20000) + s)
+            for u in range(RECIPE_CORPUS["utts_per_speaker"]):
+                rel = "%s/vid%s/%05d.wav" % (spk, "AB"[u // 2], u % 2 + 1)
+                dst = os.path.join(parts[part], rel)
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                os.rename(os.path.join(made["data"], "wav", "spk%03d_utt%03d.wav" % (s, u)), dst)
+                if part == "vox1_test":
+                    test_clips.append(rel)
+    with open(os.path.join(vox1, "veri_test.txt"), "w") as f:
+        for i, a in enumerate(test_clips):
+            for b in test_clips[i + 1:]:
+                f.write("%d %s %s\n" % (a.split("/")[0] == b.split("/")[0], a, b))
+    return vox1, vox2, made["seconds"]
+
+
+def recipe_configs(root):
+    """The shipped training and fine-tuning configs with RECIPE_CUTS."""
+    paths = {}
+    for key, name in (("config", "tdnn_amsoftmax_m0.20_linear_bn_1e-2.json"),
+                      ("finetune_config", "tdnn_amsoftmax_m0.20_linear_bn_1e-2_mhe0.01.json")):
+        with open(os.path.join(VOX_CONF, name)) as f:
+            paths[key] = write_json(os.path.join(root, "recipe_" + name),
+                                    dict(json.load(f), **RECIPE_CUTS))
+    return paths
+
+
+def run_recipe(torch, root, srcs, device="cuda"):
+    """Phase 21: the port's run.sh, stages 0-8 one at a time, on the card
+    (``device``). Returns the path's launches and shapes (summed over its
+    processes) and a summary."""
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "recipe")
+    os.makedirs(d)
+    vox1, vox2, seconds = write_vox_trees(d)
+    with open(RECIPE_SCRIPT) as f:
+        script = f.read()
+    for old, new in RECIPE_SCRIPT_CUTS:
+        if old not in script:
+            raise AssertionError("run.sh no longer holds %r" % old)
+        script = script.replace(old, new)
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    script = script.replace('py="python -m"', 'py="%s %s"' % (sys.executable, runner))
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(script)
+    print("recipe (%s): the port's run.sh, cut as tests/test_recipe_e2e.py cuts the JAX one: "
+          "configs %s; script %s; corpus %d speakers x %d clips, %.1f s of audio, written in "
+          "%.2f s" % (CARD, RECIPE_CUTS, ["%s -> %s" % c for c in RECIPE_SCRIPT_CUTS],
+                      RECIPE_CORPUS["num_speakers"], RECIPE_CORPUS["utts_per_speaker"], seconds,
+                      time.perf_counter() - t_phase))
+    data, exp = os.path.join(d, "data"), os.path.join(d, "exp")
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=exp, device=device, voxceleb1_root=vox1,
+               voxceleb2_root=vox2, musan_root=os.path.dirname(os.path.dirname(srcs["noise"])),
+               rirs_root=os.path.dirname(srcs["rirs"]), model=os.path.join(exp, "m"),
+               finetune_model=os.path.join(exp, "m_ft"), TFKS_LAUNCH_LOG=launch_log,
+               **recipe_configs(d))
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    stage_s, logs = {}, {}
+    for stage in range(9):
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", patched], env=dict(env, stage=str(stage),
+                                                          stop_stage=str(stage)),
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, timeout=600)
+        stage_s[stage] = time.perf_counter() - t0
+        logs[stage] = proc.stdout
+        with open(os.path.join(d, "stage%d.log" % stage), "w") as f:
+            f.write(proc.stdout)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            raise RuntimeError("run.sh stage %d exited %d" % (stage, proc.returncode))
+        if "SKIPPING" in proc.stdout:
+            raise AssertionError("run.sh stage %d skipped its work" % stage)
+    # what came out: augmented copies of all four kinds in train_combined,
+    # both models, both score files and their EERs
+    with open(os.path.join(data, "train_combined", "feats.scp")) as f:
+        utts = [line.split()[0] for line in f]
+    suffixes = collections.Counter(u.rsplit("-", 1)[-1] for u in utts
+                                   if u.rsplit("-", 1)[-1] in AUG_MODES)
+    if set(suffixes) != set(AUG_MODES):
+        raise AssertionError("train_combined holds augmented copies %s" % dict(suffixes))
+    for model in ("m", "m_ft"):
+        if not os.path.exists(os.path.join(exp, model, "nnet", "checkpoint")):
+            raise AssertionError("run.sh trained no %s" % model)
+    for way in ("cosine", "plda"):
+        path = os.path.join(exp, "scores_%s.txt" % way)
+        with open(path) as f:
+            n = len(f.read().splitlines())
+        if not n:
+            raise AssertionError("%s is empty" % path)
+    eers = re.findall(r"EER[^0-9]*([0-9.]+)", logs[8])
+    if len(eers) < 2:
+        raise AssertionError("stage 8 reported EERs %s:\n%s" % (eers, logs[8][-2000:]))
+    # the kernels of each stage's processes
+    launches, shapes, by_module = collections.Counter(), {}, collections.defaultdict(
+        collections.Counter)
+    with open(launch_log) as f:
+        for line in f:
+            rec = json.loads(line)
+            launches.update(rec["launches"])
+            by_module[rec["module"].rsplit(".", 1)[-1]].update(rec["launches"])
+            for name, rows in rec["shapes"].items():
+                counter = shapes.setdefault(name, collections.Counter())
+                for shape, dtype, n in rows:
+                    counter[(tuple(shape), dtype)] += n
+    for module in ("train", "finetune"):
+        if by_module[module]["cm_dequantize"] <= 0:
+            raise AssertionError("stage %s launched cm_dequantize %s times"
+                                 % (module, by_module[module]["cm_dequantize"]))
+    check_launched("recipe path (run.sh stages 0-8, every process)",
+                   dict(launches=dict(launches), shapes=shapes), ["cm_dequantize"])
+    print("recipe kernel launches by CLI: %s" % json.dumps(
+        {m: dict(c) for m, c in sorted(by_module.items()) if sum(c.values())}))
+    print("recipe stage times on the card (%s; each stage one bash run of the patched script, "
+          "every CLI its own interpreter): %s s; train_combined %d utterances (augmented %s); "
+          "stage 8 EERs %s; the phase %.2f s"
+          % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, len(utts), dict(suffixes),
+             eers, time.perf_counter() - t_phase))
+    summary = dict(stage_s=stage_s, train_combined_utts=len(utts), augmented=dict(suffixes),
+                   eers=eers, audio_s=seconds)
+    return dict(launches), shapes, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the triplet family
+# ---------------------------------------------------------------------------
+# the flagship (bf16, fused pooling, device pool) with the angular triplet
+# loss; its 64 rows as 16 speakers x 4 segments, end2end validation at 8 x 4
+# (the layouts are a smoke choice: no shipped config uses the triplet family)
+TRIPLET = dict(TRAIN, loss_func="angular_triplet_loss", triplet_type="hard",
+               loss_type="additive_margin_softmax", margin=0.2, num_speakers_per_batch=16,
+               num_segments_per_speaker=4, batch_type="end2end", num_valid_speakers_per_batch=8,
+               num_valid_segments_per_speaker=4, num_epochs=1)
+# the generalized angular triplet with "average" centers (the TF golden
+# test's weights, tests/test_tf_golden.py:478-482), one epoch of 8 steps,
+# then --cont for a second
+GENERALIZED = dict(TRIPLET, loss_func="generalized_angular_triplet_loss", margin=0.3,
+                   target_margin=1.6, triplet_center="average", triplet_center_momentum=0.95,
+                   triplet_topn=1, triplet_loss_weight=1.0, center_loss_weight=0.5,
+                   between_loss_weight=0.3, l2_loss_weight=0.0, num_steps_per_epoch=8)
+GAE2E_SPEAKERS = 32  # the x-vectors of 32 speakers x 4 utterances for compute_gae2e_loss
+
+
+def profile_triplet_group(torch, model, train):
+    """One torch.profiler pass over 8 bf16 triplet steps (after 8 of
+    warm-up): the device's busy and idle share and the top kernels."""
+    wall, busy_s, n_events, by_name = profile_pool_steps(torch, model, train, TRIPLET, 11)
+    if not n_events:
+        print("profile: no device events in the trace; device idle share not measured")
+        return {}
+    print("profile (%s), 8 bf16 angular-triplet steps [64 = 16 x 4, 296, 30] from the pool "
+          "under torch.profiler: wall %.4f s (%.3f ms a step), device busy %.4f s, device idle "
+          "%.1f%%, %d device events" % (CARD, wall, 1e3 * wall / 8, busy_s,
+                                        100 * (1 - busy_s / wall), n_events))
+    print_top(by_name, busy_s)
+    return dict(triplet_profile_step_ms=1e3 * wall / 8, triplet_device_idle=1 - busy_s / wall)
+
+
+def check_triplet_step_against_cpu(torch, model, train):
+    """One float32 angular-triplet step on the card (TF32 off) against the
+    CPU's from the trained state on one pool batch: the loss within CPU_GAP,
+    and each updated parameter's update (after - before) at cosine > 0.9999
+    of the CPU's (the biases a BatchNorm follows left out: their gradient
+    is rounding noise). Returns the loss gap and the updates' least
+    cosine."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    (codes, hdr, lab), = _pool_group(torch, train, "cpu", 1, 296, 13, TRIPLET)
+    gpu = _trainer_at(torch, model, "cuda", "float32")
+    cpu = _trainer_at(torch, model, "cpu", "float32")
+    before = flatten(variables_of(cpu.network_model))
+    lr = TRIPLET["learning_rate"]
+    loss_gpu = float(gpu.train_step_raw(codes.cuda(), hdr.cuda(), lab.cuda(), lr)["loss"])
+    loss_cpu = float(cpu.train_step_raw(codes, hdr, lab, lr)["loss"])
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if not (np.isfinite(loss_gpu) and rel <= CPU_GAP):
+        raise AssertionError("triplet step: card float32 loss %r vs CPU %r (rel %.3g > %g)"
+                             % (loss_gpu, loss_cpu, rel, CPU_GAP))
+    got, want = flatten(variables_of(gpu.network_model)), flatten(variables_of(cpu.network_model))
+    worst, largest = 1.0, 0.0
+    for path, w in want.items():
+        if path[0] != "params" or (path[-1] == "bias" and path[-2].endswith(("_conv", "_dense"))):
+            continue
+        b = before[path].double().ravel()
+        du, dw = got[path].double().ravel() - b, w.double().ravel() - b
+        worst = min(worst, float(du @ dw / (du.norm() * dw.norm())))
+        largest = max(largest, float((du - dw).abs().max() / dw.abs().max()))
+    if not worst > 0.9999:
+        raise AssertionError("triplet step: the updates' min cosine card vs CPU %.8f" % worst)
+    print("one float32 angular-triplet step, card vs CPU from the trained state: loss %r vs %r "
+          "(rel %.3g <= %g); the updates min cosine %.9f (> 0.9999), largest difference %.3g "
+          "of a parameter's largest update ok" % (loss_gpu, loss_cpu, rel, CPU_GAP, worst,
+                                                  largest))
+    return dict(triplet_cpu_loss_gap=rel, triplet_cpu_update_min_cosine=worst)
+
+
+@contextlib.contextmanager
+def watch_centers(torch, seen):
+    """Record the "average" centers at each cli.train's first epoch start
+    (``seen["start"]``) and after each checkpoint restore
+    (``seen["restored"]``)."""
+    from tf_kaldi_speaker_tpu_torch.train import trainer as trainer_mod
+
+    Trainer = trainer_mod.Trainer
+    load, train_fn = Trainer.load, Trainer.train
+
+    def centers(self):
+        return self.network_model.softmax.triplet_centers.detach().cpu().clone()
+
+    def loaded(self, *args, **kw):
+        step = load(self, *args, **kw)
+        seen.setdefault("restored", []).append((step, centers(self)))
+        return step
+
+    def training(self, *args, **kw):
+        seen.setdefault("start", centers(self))
+        return train_fn(self, *args, **kw)
+
+    Trainer.load, Trainer.train = loaded, training
+    try:
+        yield
+    finally:
+        Trainer.load, Trainer.train = load, train_fn
+
+
+def run_generalized(torch, root, train, valid):
+    """cli.train with GENERALIZED for one epoch, then --cont for a second:
+    the restored centers bit-equal to the checkpoint's, and moving in
+    both epochs. Returns the two runs."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    model = os.path.join(root, "triplet_generalized")
+    cfg_path = write_json(os.path.join(root, "triplet_generalized.json"), GENERALIZED)
+    argv = [train["data"], train["spklist"], valid["data"], valid["spklist"], model]
+    seen = {}
+    with watch_centers(torch, seen):
+        first = drive(torch, cli_train.main, ["--config", cfg_path, "--device", "cuda"] + argv)
+        if first["rc"] != 0:
+            raise RuntimeError("cli.train generalized exited %d" % first["rc"])
+        nnet = os.path.join(model, "nnet")
+        write_json(os.path.join(nnet, "config.json"), dict(GENERALIZED, num_epochs=2))
+        second = drive(torch, cli_train.main, ["--cont", "--device", "cuda"] + argv)
+        if second["rc"] != 0:
+            raise RuntimeError("cli.train --cont generalized exited %d" % second["rc"])
+    n = GENERALIZED["num_steps_per_epoch"]
+    saved = {s: torch.load(os.path.join(nnet, "model-%d.pt" % s), weights_only=True)[
+        "loss_stats"]["softmax"]["triplet_centers"] for s in (n, 2 * n)}
+    restored = [(s, c) for s, c in seen.get("restored", []) if s == n]
+    if not restored or not torch.equal(restored[0][1], saved[n]):
+        raise AssertionError("--cont did not restore the centers of model-%d" % n)
+    if torch.equal(seen["start"], saved[n]) or torch.equal(saved[n], saved[2 * n]):
+        raise AssertionError("the centers did not move in both epochs")
+    for run in (first, second):
+        check_launched("generalized triplet path (cli.train, device pool, bf16)", run,
+                       kernel_wrappers())
+    print("generalized angular triplet, average centers: epoch 1 (%d steps), then --cont "
+          "restored model-%d's centers bit for bit (max |moved| %.4g in epoch 1, %.4g in "
+          "epoch 2) ok; walls %.2f s, %.2f s"
+          % (n, n, float((saved[n] - seen["start"]).abs().max()),
+             float((saved[2 * n] - saved[n]).abs().max()), first["wall"], second["wall"]))
+    return first, second
+
+
+def run_gae2e(torch, model, train, root):
+    """cli.extract --device-pipe from the triplet model over the training
+    utterances, then cli.compute_gae2e_loss (GE2E and angular triplet) on
+    the embeddings of the first GAE2E_SPEAKERS speakers, on the card and on
+    the CPU: the losses within 1e-5 relative."""
+    from tf_kaldi_speaker_tpu_torch.cli import compute_gae2e_loss
+    from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
+
+    out = os.path.join(root, "triplet_xvector")
+    rc = cli_extract.main(["--device-pipe", "--batch-size", "32", "--device", "cuda", model,
+                           "scp:" + os.path.join(train["data"], "feats.scp"),
+                           "ark,scp:%s.ark,%s.scp" % (out, out)])
+    if rc != 0:
+        raise RuntimeError("cli.extract from the triplet model exited %d" % rc)
+    with open(os.path.join(train["data"], "utt2spk")) as f:
+        utt2spk = dict(line.split() for line in f)
+    speakers = sorted(set(utt2spk.values()))[:GAE2E_SPEAKERS]
+    with open(out + ".scp") as f:
+        lines = [line for line in f if utt2spk[line.split()[0]] in speakers]
+    with open(out + "_subset.scp", "w") as f:
+        f.write("".join(lines))
+    losses = {}
+    for loss in ("e2e", "angular_triplet"):
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = compute_gae2e_loss.main(["--loss", loss, "--device", device,
+                                              out + "_subset.scp",
+                                              os.path.join(train["data"], "utt2spk")])
+            m = re.match(r"\S+ loss over (\d+) speakers x (\d+) segments: (\S+)", buf.getvalue())
+            if rc != 0 or not m or not np.isfinite(float(m.group(3))):
+                raise AssertionError("compute_gae2e_loss %s on %s: rc %d, %r"
+                                     % (loss, device, rc, buf.getvalue()))
+            losses[loss, device] = float(m.group(3))
+        rel = abs(losses[loss, "cuda"] - losses[loss, "cpu"]) / abs(losses[loss, "cpu"])
+        if rel > 1e-5:
+            raise AssertionError("compute_gae2e_loss %s: card %.6f vs CPU %.6f"
+                                 % (loss, losses[loss, "cuda"], losses[loss, "cpu"]))
+        print("cli.compute_gae2e_loss --loss %s over %s speakers x %s segments of the triplet "
+              "model's x-vectors: card %.6f, CPU %.6f (rel %.2g <= 1e-5) ok"
+              % (loss, m.group(1), m.group(2), losses[loss, "cuda"], losses[loss, "cpu"], rel))
+    return {"%s_%s" % k: v for k, v in losses.items()}
+
+
+def run_triplet(torch, root, train, valid):
+    """Phase 22. Returns the path's launches and shapes and a summary."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    t_phase = time.perf_counter()
+    model = os.path.join(root, "triplet")
+    cfg_path = write_json(os.path.join(root, "triplet.json"), TRIPLET)
+    run = drive(torch, cli_train.main, ["--config", cfg_path, "--device", "cuda", train["data"],
+                                        train["spklist"], valid["data"], valid["spklist"], model])
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train angular triplet exited %d" % run["rc"])
+    launches = check_launched("triplet path (cli.train, angular triplet, device pool, bf16)",
+                              run, kernel_wrappers())
+    losses = [float(m.split("loss ")[1].split()[0]) for name, m in run["logged"]
+              if name == "tfks_torch.trainer" and " loss " in m]
+    K, n = TRIPLET["steps_per_dispatch"], TRIPLET["num_steps_per_epoch"]
+    if len(losses) != n // K or not np.all(np.isfinite(losses)):
+        raise AssertionError("triplet: logged losses %s (expected %d finite)" % (losses, n // K))
+    with open(os.path.join(model, "nnet", "valid_loss")) as f:
+        valid_lines = f.read().split("\n")[:-1]
+    if len(valid_lines) != 1 or not np.isfinite(float(valid_lines[0].split()[1])):
+        raise AssertionError("triplet: end2end valid_loss %s" % valid_lines)
+    if not os.path.exists(os.path.join(model, "nnet", "model-%d.pt" % n)):
+        raise AssertionError("triplet: no checkpoint at step %d" % n)
+    groups, _ = group_times(run["marks"], 0)
+    print("triplet train step (%s): %d groups of %d bf16 steps [64 = 16 x 4, 200-400 frames]: "
+          "%.3f ms a step in the last group (group times %s s, the first with start-up); group "
+          "losses %s; end2end valid line %s (GE2E over 8 x 4); whole cli.train run %.2f s"
+          % (CARD, len(groups), K, 1e3 * groups[-1] / K, ["%.4f" % g for g in groups], losses,
+             valid_lines[0], run["wall"]))
+    profile = profile_triplet_group(torch, model, train)
+    gaps = check_triplet_step_against_cpu(torch, model, train)
+    first, second = run_generalized(torch, root, train, valid)
+    gae2e = run_gae2e(torch, model, train, root)
+    shapes = {}
+    for r in (run, first, second):
+        for name, counter in r["shapes"].items():
+            shapes.setdefault(name, collections.Counter()).update(counter)
+        for name, count in r["launches"].items():
+            if r is not run:
+                launches[name] += count
+    print("triplet phase: %.2f s" % (time.perf_counter() - t_phase))
+    summary = dict(profile, triplet_last_group_step_ms=1e3 * groups[-1] / K, **gaps,
+                   generalized_walls_s=[first["wall"], second["wall"]], **gae2e)
     return launches, shapes, summary
 
 
@@ -2049,11 +2756,22 @@ def main():
     replay_mix(torch, {k: v for k, v in zoo_shapes.items() if v}, rows, flush, prefix="zoo_mix_")
     print("zoo summary (%s): %s" % (CARD, json.dumps(zoo_summary)))
 
-    wav_launches, wav_shapes, wav_summary = run_wav_to_score(torch, WORK_DIR, trained)
+    wav_launches, wav_shapes, wav_summary, wav_data = run_wav_to_score(torch, WORK_DIR, trained)
     paths["wav_to_score"] = wav_launches
     replay_mix(torch, {k: v for k, v in wav_shapes.items() if v}, rows, flush, prefix="wav_mix_")
-    del flush
     print("wav-to-score summary (%s): %s" % (CARD, json.dumps(wav_summary)))
+
+    aug_srcs, paths["augment"], aug_summary = run_augmentation(torch, WORK_DIR, wav_data)
+    print("augmentation summary (%s): %s" % (CARD, json.dumps(aug_summary)))
+    paths["recipe"], recipe_shapes, recipe_summary = run_recipe(torch, WORK_DIR, aug_srcs)
+    replay_mix(torch, {k: v for k, v in recipe_shapes.items() if v}, rows, flush,
+               prefix="recipe_mix_")
+    print("recipe summary (%s): %s" % (CARD, json.dumps(recipe_summary)))
+    paths["triplet"], triplet_shapes, triplet_summary = run_triplet(torch, WORK_DIR, train, valid)
+    replay_mix(torch, {k: v for k, v in triplet_shapes.items() if v}, rows, flush,
+               prefix="triplet_mix_")
+    del flush
+    print("triplet summary (%s): %s" % (CARD, json.dumps(triplet_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

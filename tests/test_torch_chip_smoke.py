@@ -295,3 +295,159 @@ def test_make_mfcc_host_seconds_from_its_log(tmp_path, caplog):
     assert read_s > 0 and dither_s > 0
     with pytest.raises(AssertionError, match="no host seconds"):
         cs.make_mfcc_host_seconds(dict(logged=[("root", "Extracted MFCC for 4 utterances.")]))
+
+
+def test_new_phases_are_wired():
+    """Phases 20-22 run in main after the wav phase, in that order; each
+    adds its path to the kernels line (augment, recipe, triplet), and the
+    recipe's and the triplet's kernel shapes are replayed."""
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1]
+    calls = ["run_wav_to_score(", "run_augmentation(", "run_recipe(", "run_triplet(",
+             "print(json.dumps({\"kernels\""]
+    at = [main_src.index(c) for c in calls]
+    assert at == sorted(at)
+    for path in ("augment", "recipe", "triplet"):
+        assert 'paths["%s"]' % path in main_src
+    for prefix in ("recipe_mix_", "triplet_mix_"):
+        assert 'prefix="%s"' % prefix in main_src
+    for n in (20, 21, 22):
+        assert "\n%d. " % n in cs.__doc__
+
+
+def test_aug_phase_config_is_the_recipe():
+    """The modes' seeds, SNRs and babble counts are run.sh's (:77-95)."""
+    cs = _chip_smoke()
+    with open(os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "voxceleb", "v1",
+                           "run.sh")) as f:
+        script = " ".join(f.read().replace("\\\n", " ").split())
+    for mode, (args, _) in cs.AUG_MODES.items():
+        want = "--mode %s --device \"$device\" --seed %s" % (mode, args[1])
+        assert want in script, want
+        for flag, value in zip(args[2::2], args[3::2]):
+            assert "%s %s" % (flag, value) in script.split("--mode %s" % mode)[1].split(
+                "augment_data")[0]
+    assert cs.AUG_SOURCES["rir_len"] == (4000, 16000) and cs.AUG_SOURCES["rirs"] == 8
+    assert cs.AUG_CHECK_UTTS == 16 and cs.REVERB_RTOL == 1e-12
+
+
+def test_aug_phase_on_cpu(tmp_path, monkeypatch, caplog):
+    """The augmentation phase end to end at a small size with --device cpu
+    (main sets the log level to INFO; here caplog does): sources written (8
+    RIRs of 4,000-16,000 samples with a direct path), the four modes, the
+    reverb check and the byte-equal replays pass."""
+    import logging
+
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.kio import read_wav
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "AUG_SOURCES", dict(cs.AUG_SOURCES, noise=2, music=2,
+                                                 speech_speakers=2))
+    monkeypatch.setattr(cs, "AUG_CHECK_UTTS", 3)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    caplog.set_level(logging.INFO)
+    data = make_wav_data_dir(str(tmp_path / "wav"), num_speakers=2, utts_per_speaker=2,
+                             min_seconds=0.5, max_seconds=1.0, seed=3)
+    srcs, launches, summary = cs.run_augmentation(torch, str(tmp_path), data, device="cpu")
+    assert not any(launches.values())
+    rirs = [read_wav(rx)[0] for _, rx in cs._scp_entries(srcs["rirs"])]
+    assert len(rirs) == 8 and all(4000 <= len(r) <= 16000 for r in rirs)
+    assert all(np.abs(r).max() == 20000 for r in rirs)
+    assert summary["reverb_max_rel_err"] <= 1e-12 and summary["reverb_int16_differ"] == 0
+    assert all(summary["%s_s_per_audio_hour" % mode] > 0 for mode in cs.AUG_MODES)
+    for mode in cs.AUG_MODES:
+        with open(os.path.join(str(tmp_path), "aug_" + mode, "utt2spk")) as f:
+            assert len(f.read().splitlines()) == 4
+
+
+def test_recipe_phase_pieces(tmp_path, monkeypatch):
+    """The recipe phase's corpus trees (small here) go through the port's
+    make_voxceleb as stage 0 runs it; the script cuts apply to the port's
+    run.sh; the config cuts are the recipe test's kinds only; the launch
+    runner runs a module as python -m does, keeps its exit code and logs
+    its launch counts."""
+    from tf_kaldi_speaker_tpu_torch.cli import make_voxceleb
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "RECIPE_CORPUS", dict(cs.RECIPE_CORPUS, num_speakers=6,
+                                                  min_seconds=0.3, max_seconds=0.5))
+    monkeypatch.setattr(cs, "RECIPE_SPLIT", dict(vox1_dev=range(0, 2), vox1_test=range(2, 4),
+                                                 vox2_dev=range(4, 5), vox2_test=range(5, 6)))
+    vox1, vox2, seconds = cs.write_vox_trees(str(tmp_path))
+    out = str(tmp_path / "data")
+    assert make_voxceleb.main(["voxceleb1", vox1, out, "--trials",
+                               os.path.join(vox1, "veri_test.txt")]) == 0
+    assert make_voxceleb.main(["voxceleb2", vox2, out, "--part", "test"]) == 0
+    with open(os.path.join(out, "voxceleb1_test", "trials")) as f:
+        trials = [line.split() for line in f]
+    assert len(trials) == 28 and sum(t[2] == "target" for t in trials) == 12
+    with open(os.path.join(out, "voxceleb1_train", "utt2spk")) as f:
+        assert len(f.read().splitlines()) == 8
+    with open(os.path.join(out, "voxceleb2_test", "wav.scp")) as f:
+        assert len(f.read().splitlines()) == 4
+    with open(cs.RECIPE_SCRIPT) as f:
+        script = f.read()
+    for old, new in cs.RECIPE_SCRIPT_CUTS:
+        assert old in script and new not in script
+    assert 'py="python -m"' in script
+    assert set(cs.RECIPE_CUTS) == {"num_epochs", "num_steps_per_epoch", "valid_max_iterations",
+                                   "save_checkpoints_steps", "save_summary_steps",
+                                   "show_training_progress"}
+    paths = cs.recipe_configs(str(tmp_path))
+    with open(paths["config"]) as f:
+        cfg = json.load(f)
+    assert cfg["device_pool"] and cfg["num_speakers_per_batch"] == 64 and cfg["num_epochs"] == 1
+    runner = tmp_path / "runner.py"
+    runner.write_text(cs.LAUNCH_RUNNER)
+    log = tmp_path / "launches.jsonl"
+    env = dict(os.environ, TFKS_LAUNCH_LOG=str(log), PYTHONPATH=ROOT)
+    for argv, rc in (([str(tmp_path / "data" / "voxceleb2_test")], 0), ([str(tmp_path)], 1)):
+        proc = subprocess.run([sys.executable, str(runner),
+                               "tf_kaldi_speaker_tpu_torch.cli.fix_data_dir"] + argv,
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=60)
+        assert proc.returncode == rc, proc.stderr
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [r["module"] for r in recs] == ["tf_kaldi_speaker_tpu_torch.cli.fix_data_dir"] * 2
+    assert all(r["launches"] == {"cm_dequantize": 0, "masked_stats_pooling": 0,
+                                 "masked_stats_pooling_backward": 0} for r in recs)
+
+
+def test_triplet_phase_configs(tmp_path):
+    """The triplet phase: the flagship training config with the angular
+    triplet loss over 16 x 4 rows (the flagship's 64) and end2end
+    validation at 8 x 4; the generalized variant with average centers;
+    both build in the port's trainer, and the pool gives speaker-major
+    batches of that layout."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.losses import LossHead
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    t = cs.TRIPLET
+    assert t["num_speakers_per_batch"] * t["num_segments_per_speaker"] == \
+        cs.FLAGSHIP["num_speakers_per_batch"] == 64
+    assert (t["loss_func"], t["triplet_type"], t["loss_type"], t["margin"]) == (
+        "angular_triplet_loss", "hard", "additive_margin_softmax", 0.2)
+    assert (t["batch_type"], t["num_valid_speakers_per_batch"],
+            t["num_valid_segments_per_speaker"]) == ("end2end", 8, 4)
+    for key in ("compute_dtype", "use_fused_pooling", "tdnn_layer_size"
+                if "tdnn_layer_size" in cs.FLAGSHIP else "network_type"):
+        assert t[key] == cs.FLAGSHIP[key]
+    assert t["device_pool"] and t["num_steps_per_epoch"] == 16
+    g = cs.GENERALIZED
+    assert g["triplet_center"] == "average" and g["num_steps_per_epoch"] == 8
+    for cfg in (t, g):
+        head = LossHead(cfg["loss_func"], 96, cfg, 512)
+        assert hasattr(head, "triplet_centers") == (cfg is g)
+    train = make_fake_data_dir(str(tmp_path / "train"), num_speakers=20, utts_per_speaker=4,
+                               dim=cs.FEAT_DIM, min_len=300, max_len=400, seed=1)
+    batches = cs._pool_group(torch, train, "cpu", 2, 296, 11, cs.TRIPLET)
+    for codes, hdr, labels in batches:
+        assert codes.shape == (64, 296, cs.FEAT_DIM)
+        lab = labels.numpy().reshape(16, 4)
+        assert (lab == lab[:, :1]).all() and len(set(lab[:, 0])) == 16

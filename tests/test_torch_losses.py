@@ -154,9 +154,12 @@ def test_head_matches_jax(loss_func, margin_override):
 def test_head_names_and_refusals():
     assert thead.LOSS_NAMES == jhead.LOSS_NAMES
     assert thead.STRUCTURAL_LOSSES == jhead.STRUCTURAL_LOSSES
+    # the structural losses are ported (tests/test_torch_triplet.py): only
+    # the generalized triplet has the output kernel
+    gt = dict(triplet_center="learnable")
     for name in thead.STRUCTURAL_LOSSES:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thead.LossHead(name, 4, {}, 6)
+        h = thead.LossHead(name, 4, gt, 6)
+        assert hasattr(h, "output_kernel") == (name == "generalized_angular_triplet_loss")
     with pytest.raises(NotImplementedError, match="Unsupported aux loss"):
         thead.LossHead("softmax", 4, {"aux_loss_func": ["no_such_aux"]}, 6)
     with pytest.raises(NotImplementedError, match="Not implement"):

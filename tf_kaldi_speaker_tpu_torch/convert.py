@@ -11,15 +11,18 @@ submodule names are the JAX package's. This module is the only place where
 layouts change:
 
 - a module path ``a.b.leaf`` is the JAX path ``(collection, a, b, leaf)``;
-  the collection is ``batch_stats`` for BatchNorm's ``mean``/``var`` and
-  ``params`` for everything else (the attention ``query``, the GhostVLAD
-  ``vlad_centers`` and the ring loss's ``ring_r`` included);
+  the collection is ``batch_stats`` for BatchNorm's ``mean``/``var``,
+  ``loss_stats`` for the generalized triplet's ``triplet_centers`` buffer
+  (``loss_stats/softmax/triplet_centers``), and ``params`` for everything
+  else (the attention ``query``, the GhostVLAD ``vlad_centers`` and the
+  ring loss's ``ring_r`` included);
 - 1-D conv kernel ``[k, in, out]`` <-> ``weight [out, in, k]`` and dense
   kernel ``[in, out]`` <-> ``weight [out, in]`` (both "reverse all axes");
 - 2-D conv kernel ``[kh, kw, in, out]`` <-> ``weight [out, in, kh, kw]``
   (reversing all axes would swap time and frequency);
 - BatchNorm ``scale``/``bias``, PReLU ``alpha``, every bias, the loss
-  head's ``output_kernel`` [D, C] and the leaves above: copied as they are.
+  head's ``output_kernel`` [D, C], the triplet centers [D, C] and the
+  leaves above: copied as they are.
 
 An array the converter does not consume, a missing one, or one of the wrong
 shape raises.
@@ -35,13 +38,13 @@ from torch import nn
 
 from .models.tdnn import EntireNetwork
 
-_BATCH_STATS = ("mean", "var")
+_COLLECTIONS = {"mean": "batch_stats", "var": "batch_stats", "triplet_centers": "loss_stats"}
 
 
 def jax_path(name: str) -> Tuple[str, ...]:
     """'tdnn.tdnn1_conv.weight' -> ('params', 'tdnn', 'tdnn1_conv', 'kernel')."""
     *modules, leaf = name.split(".")
-    collection = "batch_stats" if leaf in _BATCH_STATS else "params"
+    collection = _COLLECTIONS.get(leaf, "params")
     return (collection, *modules, "kernel" if leaf == "weight" else leaf)
 
 

@@ -1,5 +1,6 @@
-"""Loss zoo of the port: the margin-softmax family, its head and the ring
-and MHE auxiliary terms."""
+"""Loss zoo of the port: the margin-softmax family, the triplet family
+(semi-hard, angular, GE2E and the generalized angular triplet), their head
+and the ring and MHE auxiliary terms."""
 
 from .head import AUX_LOSSES, LOSS_NAMES, STRUCTURAL_LOSSES, LossHead
 from .margin import (
@@ -11,6 +12,7 @@ from .margin import (
     softmax_loss,
     sparse_softmax_xent,
 )
+from .triplet import angular_triplet_loss, e2e_valid_loss, semihard_triplet_loss
 
 __all__ = [
     "AUX_LOSSES",
@@ -18,10 +20,13 @@ __all__ = [
     "STRUCTURAL_LOSSES",
     "LossHead",
     "amsoftmax_loss",
+    "angular_triplet_loss",
     "arcsoftmax_loss",
     "asoftmax_loss",
     "asoftmax_phi",
+    "e2e_valid_loss",
     "margin_annealing_lambda",
+    "semihard_triplet_loss",
     "softmax_loss",
     "sparse_softmax_xent",
 ]

@@ -3,7 +3,8 @@
 Counterpart of ``tf_kaldi_speaker_tpu/models/layers.py`` (reference
 ``model/common.py``): the activation factory, glorot-uniform init with zero
 bias, BatchNorm over the last axis (train and eval mode), L2 re-scaling,
-the dense [+ bn] [+ activation] block and the head split/merge helpers.
+the all-pairs distances and cosines of the triplet losses, the dense
+[+ bn] [+ activation] block and the head split/merge helpers.
 """
 
 from __future__ import annotations
@@ -104,6 +105,29 @@ def l2_scaling(x: torch.Tensor, scaling_factor: float, epsilon: float = 1e-12) -
     square_sum = torch.sum(x * x, dim=-1, keepdim=True)
     return x * (torch.rsqrt(torch.clamp_min(square_sum, epsilon)) * scaling_factor)
 
+
+def pairwise_euc_distances(embeddings: torch.Tensor, squared: bool = False) -> torch.Tensor:
+    """All-pairs (squared) euclidean distances (common.py:61-94). The floor
+    at 0 is ``torch.maximum``, whose gradient splits a tie as
+    ``jnp.maximum``'s does; exact zeros get no sqrt gradient."""
+    dot = embeddings @ embeddings.t()
+    sq = torch.diagonal(dot)
+    d = sq[:, None] - 2.0 * dot + sq[None, :]
+    d = torch.maximum(d, torch.zeros_like(d))
+    if not squared:
+        mask = (d == 0.0).to(d.dtype)
+        d = torch.sqrt(d + mask * 1e-16) * (1.0 - mask)
+    return d
+
+
+def pairwise_cos_similarity(embeddings: torch.Tensor, epsilon: float = 1e-12) -> torch.Tensor:
+    """All-pairs cosine similarity, clipped to [-1, 1] as ``jnp.clip`` clips
+    (common.py:97-110)."""
+    dot = embeddings @ embeddings.t()
+    sq = torch.sum(embeddings * embeddings, dim=-1, keepdim=True)
+    inv = torch.rsqrt(torch.clamp_min(sq, epsilon))
+    cos = dot * (inv @ inv.t())
+    return torch.minimum(torch.maximum(cos, torch.full_like(cos, -1.0)), torch.full_like(cos, 1.0))
 
 
 class DenseBlock(nn.Module):

@@ -34,15 +34,19 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
   ``_post_group`` keeps the JAX cadences: progress, summaries
   (``save_summary_steps``, histograms), the profiler window
   (``profile_steps``), checkpoints; a stop poll follows every group.
-- :meth:`Trainer.valid` is the ``batch_type="softmax"`` branch of
-  ``valid`` (``:1319-1445``), margins neutralized, polling for a stop at
-  every batch.
+- :meth:`Trainer.valid` is ``valid`` (``:1319-1445``): sequential
+  batches (``batch_type: "softmax"``) or speaker-major random batches of
+  ``num_valid_speakers_per_batch x num_valid_segments_per_speaker``
+  (``"end2end"``), margins neutralized, ``angular_triplet_loss`` validated
+  with ``e2e_valid_loss``, polling for a stop at every batch.
+- The generalized triplet's "average" centers (the JAX ``loss_stats``
+  collection) are a buffer of the loss head: they move in the train step,
+  and travel through checkpoints, ``--cont`` and fine-tuning.
 - :meth:`Trainer.get_finetune_model` (``:748-787``) and
   :meth:`Trainer.train_tune_lr` (``:1268-1317``).
 
-Not ported, and refused where a config asks for them: ``ShardedDevicePool``
-(``pool_sharded``, multi-card, ROADMAP.md §1 item 7) and the end2end
-validation (ROADMAP.md §1 item 3).
+Not ported, and refused where a config asks for it: ``ShardedDevicePool``
+(``pool_sharded``, multi-card, ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ from .. import convert
 from ..data import (DataOutOfRange, KaldiDataRandomQueue, KaldiDataSeqQueue, bucket_lengths,
                     device_prefetch)
 from ..data.device_pool import DevicePool, gather_chunks
-from ..losses import LossHead
+from ..losses import STRUCTURAL_LOSSES, LossHead
 from ..models.tdnn import EntireNetwork
 from ..ops.cm_dequant import cm_dequantize
 from ..utils.summary import SummaryWriter, start_trace, stop_trace
@@ -91,10 +95,10 @@ class XVectorModel(nn.Module):
                                 generator)
 
     def forward(self, features, labels, step=0, margin_override=None, mask=None,
-                sample_weight=None, aux_enabled=True):
+                sample_weight=None, aux_enabled=True, loss_func=None):
         out, endpoints = self.network(features, mask)
         loss, ep = self.softmax(out, labels, step, margin_override, sample_weight,
-                                aux_enabled)
+                                aux_enabled, loss_func)
         endpoints.update(ep)
         return loss, endpoints
 
@@ -292,7 +296,9 @@ class Trainer:
         leaves = list(params.values())
         grads = list(torch.autograd.grad(total, leaves))
         with torch.no_grad():
-            acc = torch.mean((torch.argmax(endpoints["logits"], dim=-1) == labels).to(torch.float32))
+            logits = endpoints.get("logits")  # none for the triplet family
+            acc = (torch.zeros((), device=loss.device) if logits is None else
+                   torch.mean((torch.argmax(logits, dim=-1) == labels).to(torch.float32)))
             # Frozen gradients are zeroed before clipping and the optimizer
             # (the reference differentiates the trainable variables only),
             # frozen updates after it, and frozen statistics restored.
@@ -345,7 +351,7 @@ class Trainer:
         except FileNotFoundError:
             return 0
         model = self.network_model
-        variables = {"params": raw["params"], "batch_stats": raw.get("batch_stats", {})}
+        variables = {key: raw.get(key, {}) for key in ("params", "batch_stats", "loss_stats")}
         convert.load_variables(model, variables)
         refs = dict(self._params)
         opt = {}
@@ -622,14 +628,26 @@ class Trainer:
         out, _ = self.network_model.eval().network(features.to(self.device))
         return out
 
+    def _valid_loss_func(self) -> Optional[str]:
+        """The validation loss's override: ``angular_triplet_loss`` validates
+        with ``e2e_valid_loss`` (trainer.py:583-586)."""
+        return "e2e_valid_loss" if self.loss_type == "angular_triplet_loss" else None
+
     @torch.no_grad()
     def valid_loss(self, features: torch.Tensor, labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
-        """Eval-mode loss with the margin neutralized (trainer.py:589-602)."""
+        """Eval-mode loss with the margin neutralized (trainer.py:589-602).
+        ``weights`` [B] is a host tensor (0 = a padded row); a structural
+        loss cannot weight a row out, so it refuses padded rows
+        (trainer.py:1153-1158)."""
+        loss_func = self._valid_loss_func()
+        if (loss_func or self.loss_type) in STRUCTURAL_LOSSES and bool(torch.any(weights == 0)):
+            raise ValueError("loss %s cannot weight padded rows out"
+                             % (loss_func or self.loss_type))
         loss, _ = self.network_model.eval()(
             features.to(self.device), labels.to(self.device), self.step,
             margin_override=VALID_MARGIN_NEUTRAL.get(self.loss_type),
-            sample_weight=weights.to(self.device), aux_enabled=False)
+            sample_weight=weights.to(self.device), aux_enabled=False, loss_func=loss_func)
         return loss
 
     def valid(self, data_dir: str, spklist: str, batch_type: str = "softmax",
@@ -637,10 +655,15 @@ class Trainer:
               ) -> Tuple[float, Optional[np.ndarray], Optional[np.ndarray]]:
         """Validation: optional embedding dump pass + streamed loss pass
         (reference trainer.py:592-706). Returns (loss, embeddings, labels)."""
-        if batch_type != "softmax":
-            raise NotImplementedError(
-                "batch_type %r validation is not ported yet (ROADMAP.md §1 item 3, "
-                "with the end2end losses)" % batch_type)
+        if batch_type not in ("softmax", "end2end"):
+            raise ValueError("Unknown batch_type %s" % batch_type)
+        if batch_type == "softmax" and self._valid_loss_func() == "e2e_valid_loss":
+            # e2e_valid_loss reshapes by num_valid_speakers x
+            # num_valid_segments: sequential batches cannot satisfy that
+            raise ValueError(
+                "angular_triplet_loss validates with batch_type='end2end' "
+                "(its valid loss is the GE2E loss over speaker-major "
+                "batches; reference trainer.py:272-275)")
         cfg = self.params.dict
         batch_size = int(cfg.get("num_speakers_per_batch", 64)) * int(
             cfg.get("num_segments_per_speaker", 1))
@@ -668,8 +691,16 @@ class Trainer:
             embeddings = np.concatenate(embs, 0) if embs else np.zeros((0, 1))
             labels_out = np.concatenate(labs, 0) if labs else np.zeros((0,), np.int32)
 
-        loader = KaldiDataSeqQueue(data_dir, spklist, num_parallel=2,
-                                   batch_size=batch_size, shuffle=True, **lengths).start()
+        if batch_type == "softmax":
+            loader = KaldiDataSeqQueue(data_dir, spklist, num_parallel=2,
+                                       batch_size=batch_size, shuffle=True, **lengths).start()
+        else:
+            # speaker-major random batches (trainer.py:1395-1415)
+            loader = KaldiDataRandomQueue(
+                data_dir, spklist, num_parallel=2,
+                num_speakers=int(cfg["num_valid_speakers_per_batch"]),
+                num_segments=int(cfg["num_valid_segments_per_speaker"]),
+                min_len=lengths["min_len"], max_len=lengths["max_len"]).start()
         # Sample-count-weighted streaming mean: every real utterance counts once.
         total, count = 0.0, 0
         try:

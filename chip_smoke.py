@@ -116,7 +116,40 @@ Phases, each of which raises on failure:
    centers for an epoch of 8 steps and a ``--cont`` epoch that restores the
    centers bit for bit; ``cli.compute_gae2e_loss`` on the triplet model's
    x-vectors on the card against the CPU; the path's shapes replayed, as in
-   7.
+   7;
+23. the native ark reader: built with g++ (its time and path printed);
+   ``decode_batch_fast`` and ``read_batch_codes_fast`` over 16 chunks of
+   the training corpus (one ending on its utterance's last frame) bit-equal
+   to the numpy codec; then the streaming phase's first epoch (the fisher
+   config as it is, 16 loader threads, ``device_decode``) twice in this
+   process, with the native reader and with ``TFKS_DISABLE_NATIVE=1``: each
+   run's first-group latency, group times and the consumer's wait for each
+   group, the native run with 0 numpy fallbacks (so are the streaming
+   phase of 13 and the recipe of 25); the CM reads of three builds of the
+   reader (column by column, the port's, one span a matrix) timed over
+   the training corpus and 16 long (60,000-frame, 23-d) utterances, their
+   floats bit-equal;
+24. the multi-input trainer's BNF chain at the flagship's width:
+   ``cli.extract_bnf --node tdnn5_relu`` from the trained pool model over
+   the training and validation utterances (1500-d, float arks),
+   ``cli.prepare_feats --no-cmvn``, the three builds' CM reads over the
+   prepared BNFs, ``cli.train_mi`` (bf16, fused pooling, the BNF stream
+   concatenated onto the input; 1 epoch of 16 steps in groups of 8, 2
+   validation batches; the pooling forward and backward must launch: the
+   multi-stream loader ships floats, as the JAX one does) and
+   ``cli.extract_mi`` on the validation set against a CPU predict; a
+   profiler pass over 8 steps; a float32 step on the card against the
+   CPU's (the loss and the updates); each check with a TF32-on and a bf16
+   control read against its bound; the path's shapes replayed, as in 7;
+25. the Fisher recipe: ``tf_kaldi_speaker_tpu_torch/recipes/fisher/v1/run.sh``
+   stages 1-6 on a synthetic 8 kHz tree (80 background speakers x 8
+   utterances, 10 speakers' enrollment and test utterances and their
+   trials) with the shipped AM-softmax config at full width cut to 1 epoch
+   of 16 steps, a smaller validation split and LDA width; each stage's
+   time; every CLI's kernel launches and native reader counts at its exit
+   (``cm_dequantize`` must launch in ``cli.train``, no CLI may fall back to
+   numpy); both score files and their EERs; the path's shapes replayed, as
+   in 7.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -717,23 +750,27 @@ def write_json(path, obj):
     return path
 
 
-def drive(torch, main_fn, argv, capture=None):
+def drive(torch, main_fn, argv, capture=None, waits=None):
     """Run a CLI's ``main(argv)`` in this process as one main path: every
     kernel's launch and shape counters set to 0 just before and read just
     after; log records collected as (logger, message); each epoch's start
-    and each group's end marked after a synchronize, at the entry and the
-    exit of ``_post_group`` (the trainer does not synchronize itself).
+    (``Trainer.train`` or ``TrainerMultiInput.train``) and each group's end
+    marked after a synchronize, at the entry and the exit of
+    ``_post_group`` (the trainer does not synchronize itself).
     ``capture`` = (list, n): the first n ``train_step_raw`` inputs are
-    copied to the host into the list."""
+    copied to the host into the list. ``waits``: a list that gets the
+    consumer's wait for each group from ``device_prefetch``, in seconds."""
     import logging
 
     from tf_kaldi_speaker_tpu_torch.train import trainer as trainer_mod
+    from tf_kaldi_speaker_tpu_torch.train import trainer_mi as trainer_mi_mod
 
     logged, marks = [], []  # marks: (kind, step, time)
     handler = logging.Handler()
     handler.emit = lambda record: logged.append((record.name, record.getMessage()))
-    Trainer = trainer_mod.Trainer
+    Trainer, TrainerMI = trainer_mod.Trainer, trainer_mi_mod.TrainerMultiInput
     train_fn, post_group, step_raw = Trainer.train, Trainer._post_group, Trainer.train_step_raw
+    train_mi_fn, prefetch = TrainerMI.train, trainer_mod.device_prefetch
 
     def mark(self, kind):
         torch.cuda.synchronize()
@@ -742,6 +779,24 @@ def drive(torch, main_fn, argv, capture=None):
     def timed_train(self, *args, **kw):
         mark(self, "start")
         return train_fn(self, *args, **kw)
+
+    def timed_train_mi(self, *args, **kw):
+        mark(self, "start")
+        return train_mi_fn(self, *args, **kw)
+
+    def timed_prefetch(*args, **kw):
+        inner = prefetch(*args, **kw)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(inner)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield item
+        finally:
+            inner.close()
 
     def timed_post_group(self, *args, **kw):
         mark(self, "group")
@@ -760,8 +815,11 @@ def drive(torch, main_fn, argv, capture=None):
         fn.launches = 0
         fn.shapes.clear()
     Trainer.train, Trainer._post_group = timed_train, timed_post_group
+    TrainerMI.train = timed_train_mi
     if capture is not None:
         Trainer.train_step_raw = captured_step_raw
+    if waits is not None:
+        trainer_mod.device_prefetch = trainer_mi_mod.device_prefetch = timed_prefetch
     logging.getLogger().addHandler(handler)
     try:
         t0 = time.perf_counter()
@@ -770,7 +828,8 @@ def drive(torch, main_fn, argv, capture=None):
         wall = time.perf_counter() - t0
     finally:
         Trainer.train, Trainer._post_group = train_fn, post_group
-        Trainer.train_step_raw = step_raw
+        Trainer.train_step_raw, TrainerMI.train = step_raw, train_mi_fn
+        trainer_mod.device_prefetch = trainer_mi_mod.device_prefetch = prefetch
         logging.getLogger().removeHandler(handler)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     shapes = {name: collections.Counter(fn.shapes) for name, fn in wrappers.items()}
@@ -915,11 +974,13 @@ def run_stream_training(torch, root, train, valid):
     model = os.path.join(root, "stream")
     cfg_path = write_json(os.path.join(root, "stream.json"), cfg)
     first = []
+    native_counts_reset()
     run = drive(torch, cli_train.main,
                 ["--config", cfg_path, "--device", "cuda", train["data"], train["spklist"],
                  valid["data"], valid["spklist"], model], capture=(first, K))
     if run["rc"] != 0:
         raise RuntimeError("cli.train (streaming) exited %d" % run["rc"])
+    check_no_fallback("streaming path (cli.train)", native_counts(), "read_batch_codes")
     check_launched("streaming path (cli.train, fisher v1 config: float32, device_decode, "
                    "two-pass pooling)", run, ["cm_dequantize"])
     print("  dequant shapes on the path: %s" % sorted(
@@ -2271,8 +2332,8 @@ RECIPE_SCRIPT_CUTS = (("--min-num-utts 8", "--min-num-utts 2"),
 # run.sh's `$py` becomes this runner: python -m <module> in a fresh process,
 # which at its exit appends the process's kernel launch counts to a log
 LAUNCH_RUNNER = '''"""python -m MODULE ARGS..., then append this process's kernel launch
-and shape counts (zero where a wrapper was never imported) to the JSON-lines
-file named by TFKS_LAUNCH_LOG."""
+and shape counts (zero where a wrapper was never imported) and its native
+reader's counts to the JSON-lines file named by TFKS_LAUNCH_LOG."""
 import atexit
 import json
 import os
@@ -2288,7 +2349,9 @@ MODULE = sys.argv[1]
 
 
 def dump():
-    rec = {"module": MODULE, "launches": {}, "shapes": {}}
+    native = sys.modules.get("tf_kaldi_speaker_tpu_torch.kio.native_decode")
+    rec = {"module": MODULE, "launches": {}, "shapes": {},
+           "native": dict(native.counts) if native is not None else {}}
     for name, (mod, attr) in WRAPPERS.items():
         fn = getattr(sys.modules.get(mod), attr, None)
         rec["launches"][name] = fn.launches if fn is not None else 0
@@ -2345,6 +2408,49 @@ def recipe_configs(root):
     return paths
 
 
+def run_stages(script, env, stages, d):
+    """``script`` one stage at a time (``stage=stop_stage=N``), each stage's
+    output kept in ``d/stageN.log``; raises on a failed or skipped stage.
+    Returns the stages' seconds and outputs."""
+    stage_s, logs = {}, {}
+    for stage in stages:
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", script], env=dict(env, stage=str(stage),
+                                                         stop_stage=str(stage)),
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, timeout=600)
+        stage_s[stage] = time.perf_counter() - t0
+        logs[stage] = proc.stdout
+        with open(os.path.join(d, "stage%d.log" % stage), "w") as f:
+            f.write(proc.stdout)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            raise RuntimeError("%s stage %d exited %d" % (script, stage, proc.returncode))
+        if "SKIPPING" in proc.stdout:
+            raise AssertionError("%s stage %d skipped its work" % (script, stage))
+    return stage_s, logs
+
+
+def read_launch_log(path):
+    """The runner's records: launches and shapes summed, launches and
+    native reader counts by CLI."""
+    launches, shapes = collections.Counter(), {}
+    by_module = collections.defaultdict(collections.Counter)
+    native = collections.defaultdict(collections.Counter)
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            module = rec["module"].rsplit(".", 1)[-1]
+            launches.update(rec["launches"])
+            by_module[module].update(rec["launches"])
+            native[module].update(rec.get("native", {}))
+            for name, rows in rec["shapes"].items():
+                counter = shapes.setdefault(name, collections.Counter())
+                for shape, dtype, n in rows:
+                    counter[(tuple(shape), dtype)] += n
+    return launches, shapes, by_module, native
+
+
 def run_recipe(torch, root, srcs, device="cuda"):
     """Phase 21: the port's run.sh, stages 0-8 one at a time, on the card
     (``device``). Returns the path's launches and shapes (summed over its
@@ -2379,22 +2485,7 @@ def run_recipe(torch, root, srcs, device="cuda"):
                finetune_model=os.path.join(exp, "m_ft"), TFKS_LAUNCH_LOG=launch_log,
                **recipe_configs(d))
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    stage_s, logs = {}, {}
-    for stage in range(9):
-        t0 = time.perf_counter()
-        proc = subprocess.run(["bash", patched], env=dict(env, stage=str(stage),
-                                                          stop_stage=str(stage)),
-                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, timeout=600)
-        stage_s[stage] = time.perf_counter() - t0
-        logs[stage] = proc.stdout
-        with open(os.path.join(d, "stage%d.log" % stage), "w") as f:
-            f.write(proc.stdout)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:])
-            raise RuntimeError("run.sh stage %d exited %d" % (stage, proc.returncode))
-        if "SKIPPING" in proc.stdout:
-            raise AssertionError("run.sh stage %d skipped its work" % stage)
+    stage_s, logs = run_stages(patched, env, range(9), d)
     # what came out: augmented copies of all four kinds in train_combined,
     # both models, both score files and their EERs
     with open(os.path.join(data, "train_combined", "feats.scp")) as f:
@@ -2416,17 +2507,7 @@ def run_recipe(torch, root, srcs, device="cuda"):
     if len(eers) < 2:
         raise AssertionError("stage 8 reported EERs %s:\n%s" % (eers, logs[8][-2000:]))
     # the kernels of each stage's processes
-    launches, shapes, by_module = collections.Counter(), {}, collections.defaultdict(
-        collections.Counter)
-    with open(launch_log) as f:
-        for line in f:
-            rec = json.loads(line)
-            launches.update(rec["launches"])
-            by_module[rec["module"].rsplit(".", 1)[-1]].update(rec["launches"])
-            for name, rows in rec["shapes"].items():
-                counter = shapes.setdefault(name, collections.Counter())
-                for shape, dtype, n in rows:
-                    counter[(tuple(shape), dtype)] += n
+    launches, shapes, by_module, _ = read_launch_log(launch_log)
     for module in ("train", "finetune"):
         if by_module[module]["cm_dequantize"] <= 0:
             raise AssertionError("stage %s launched cm_dequantize %s times"
@@ -2676,6 +2757,725 @@ def run_triplet(torch, root, train, valid):
     return launches, shapes, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the native ark reader under the streaming loader
+# ---------------------------------------------------------------------------
+NATIVE_CHECK = dict(items=16, length=300)  # the bit-equality check's batch
+# The CM read's builds compared on the card's host: every matrix read column
+# by column (the JAX copy's reads), the port's build (one read of the span
+# that holds the requested rows where it is at most 4 times the requested
+# bytes), and every matrix in one span read. Batches of 64 chunks of 300
+# rows at random starts, as the sampler asks, read with the sampler's 4
+# threads (decode_batch) and row by row (decode_submat, the multi-stream
+# sampler's read), the builds interleaved batch by batch.
+CM_READS = (("per_column", ("-DTFKS_CM_SPAN_FACTOR=0",)), ("port", ()),
+            ("span", ("-DTFKS_CM_SPAN_FACTOR=1000000",)))
+READ_AB = dict(batches=12, items=64, length=300, threads=4, seed=29)
+# long utterances for the reads: 16 Fisher-length sides (10 minutes at 100
+# frames a second) of the Fisher recipe's 23 cepstra
+LONG_TREE = dict(utts=16, frames=60000, dim=23, seed=31)
+
+
+def native_counts_reset():
+    from tf_kaldi_speaker_tpu_torch.kio import native_decode
+
+    native_decode.reset_counts()
+
+
+def native_counts():
+    from tf_kaldi_speaker_tpu_torch.kio import native_decode
+
+    return dict(native_decode.counts)
+
+
+def check_no_fallback(path, counts, kind):
+    """A native path: reads of ``kind`` served natively, none handed back
+    to numpy."""
+    if counts.get("fallback", 0) or not counts.get(kind, 0):
+        raise AssertionError("%s: native reader counts %s (want %s > 0, no fallback)"
+                             % (path, counts, kind))
+    print("%s: native reader %s, 0 numpy fallbacks ok" % (path, json.dumps(counts)))
+
+
+def build_native():
+    """Build (or find) the native reader's library; prints the build time
+    and the library's path."""
+    from tf_kaldi_speaker_tpu_torch.kio import native_decode
+
+    t0 = time.perf_counter()
+    path = native_decode.build()
+    if not native_decode.native_available():
+        raise AssertionError("the native reader did not load from %s" % path)
+    print("native ark reader built with g++ %s from %s in %.2f s -> %s"
+          % (" ".join(native_decode.GXX_FLAGS), os.path.relpath(native_decode.SOURCE, ROOT),
+             time.perf_counter() - t0, path))
+    return path
+
+
+def check_native_reads(data):
+    """``decode_batch_fast`` and ``read_batch_codes_fast`` over NATIVE_CHECK
+    items of a compressed data dir (the first item ends on its utterance's
+    last frame) bit-equal to the port's numpy codec."""
+    from tf_kaldi_speaker_tpu_torch.kio import FeatureReader, native_decode, read_mat
+
+    reader = FeatureReader(data["data"])
+    L, rng = NATIVE_CHECK["length"], random.Random(5)
+    with open(data["feats_scp"]) as f:
+        segs = [line.strip() for _, line in zip(range(NATIVE_CHECK["items"]), f)]
+    items = []
+    for k, seg in enumerate(segs):
+        utt, rx = seg.split(" ")
+        n = reader.utt2num_frames[utt]
+        filename, offset = rx.rsplit(":", 1)
+        items.append((filename, int(offset), n - L if k == 0 else rng.randint(0, n - L), L))
+    floats = np.empty((len(items), L, reader.dim), np.float32)
+    codes = np.empty((len(items), L, reader.dim), np.uint8)
+    headers = np.empty((len(items), 4, reader.dim), np.float32)
+    if not (native_decode.decode_batch_fast(items, floats)
+            and native_decode.read_batch_codes_fast(items, codes, headers)):
+        raise AssertionError("the native batch reads refused the smoke corpus")
+    for k, (seg, (_, _, start, _)) in enumerate(zip(segs, items)):
+        want = read_mat(seg.split(" ")[1])[start:start + L]
+        want_c, want_h, _ = reader.read_segment_codes(seg, L, start=start)
+        if not (np.array_equal(floats[k].view(np.uint32), want.view(np.uint32))
+                and np.array_equal(codes[k], want_c)
+                and np.array_equal(headers[k].view(np.uint32), want_h.view(np.uint32))):
+            raise AssertionError("native read of %s [%d, %d) differs from the numpy codec"
+                                 % (seg.split(" ")[0], start, start + L))
+    reader.close()
+    print("native decode_batch_fast and read_batch_codes_fast, %d items x %d frames x %d (the "
+          "first ending on its last frame): floats, codes and headers bit-equal to the numpy "
+          "codec ok" % (len(items), L, codes.shape[2]))
+
+
+def write_long_tree(root):
+    """A compressed data dir of LONG_TREE utterances."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    return make_fake_data_dir(os.path.join(root, "long"), num_speakers=LONG_TREE["utts"],
+                              utts_per_speaker=1, dim=LONG_TREE["dim"],
+                              min_len=LONG_TREE["frames"], max_len=LONG_TREE["frames"],
+                              seed=LONG_TREE["seed"])["data"]
+
+
+def cm_read_ab(name, data_dir):
+    """READ_AB's batches over ``data_dir``'s CM matrices with each of
+    CM_READS' builds: the median ms a batch through ``tfks_decode_batch``
+    and row by row through ``tfks_decode_submat``, the floats bit-equal
+    across builds. Returns {build: {batch_ms, rows_ms}}."""
+    import ctypes
+
+    from tf_kaldi_speaker_tpu_torch.kio import FeatureReader, native_decode
+
+    reader = FeatureReader(data_dir)
+    dim, L = reader.dim, READ_AB["length"]
+    reader.close()
+    rng = random.Random(READ_AB["seed"])
+    with open(os.path.join(data_dir, "feats.scp")) as f:
+        mats = [(line.split()[0], *line.split()[1].rsplit(":", 1)) for line in f]
+    mats = [(utt, fn, int(off)) for utt, fn, off in mats if reader.utt2num_frames[utt] >= L]
+    libs = {b: native_decode.load(native_decode.build(native_decode.GXX_FLAGS + flags))
+            for b, flags in CM_READS}
+    times = {b: dict(batch_ms=[], rows_ms=[]) for b in libs}
+    fp = ctypes.POINTER(ctypes.c_float)
+    for _ in range(READ_AB["batches"] + 1):  # the first batch warms up
+        items = []
+        for _ in range(READ_AB["items"]):
+            utt, fn, off = rng.choice(mats)
+            items.append((fn, off, rng.randint(0, reader.utt2num_frames[utt] - L), L))
+        args = native_decode.batch_args(items)
+        ref = None
+        for b, lib in libs.items():
+            out = np.empty((len(items), L, dim), np.float32)
+            t0 = time.perf_counter()
+            r = lib.tfks_decode_batch(*args, len(items), L, dim, out.ctypes.data_as(fp),
+                                      READ_AB["threads"])
+            t1 = time.perf_counter()
+            rows = np.empty_like(out)
+            for k, (fn, off, start, n) in enumerate(items):
+                if lib.tfks_decode_submat(fn.encode(), off, start, n, rows[k].ctypes.data_as(fp),
+                                          rows[k].size) != dim:
+                    raise AssertionError("%s build: decode_submat refused %s:%d" % (b, fn, off))
+            t2 = time.perf_counter()
+            if r != dim or not np.array_equal(out.view(np.uint32), rows.view(np.uint32)):
+                raise AssertionError("%s build: decode_batch returned %d or differs from "
+                                     "decode_submat" % (b, r))
+            if ref is None:
+                ref = out
+            elif not np.array_equal(out.view(np.uint32), ref.view(np.uint32)):
+                raise AssertionError("%s build's floats differ from the %s build's"
+                                     % (b, CM_READS[0][0]))
+            times[b]["batch_ms"].append(1e3 * (t1 - t0))
+            times[b]["rows_ms"].append(1e3 * (t2 - t1))
+    for lib in libs.values():
+        lib.tfks_close_all()
+    rows_of = sorted(reader.utt2num_frames.values())
+    out = {b: {k: float(np.median(v[1:])) for k, v in t.items()} for b, t in times.items()}
+    print("CM reads, %s (%d matrices of %d-%d rows x %d; %s; batches of %d x %d rows, "
+          "median of %d): %s; floats bit-equal across the builds ok"
+          % (name, len(rows_of), rows_of[0], rows_of[-1], dim, CARD, READ_AB["items"], L,
+             READ_AB["batches"], "; ".join(
+                 "%s %.3f ms a batch (%d threads), %.3f ms row by row"
+                 % (b, v["batch_ms"], READ_AB["threads"], v["rows_ms"]) for b, v in out.items())))
+    return out
+
+
+def run_native_vs_numpy(torch, root, train, valid, device="cuda"):
+    """The streaming phase's first epoch (fisher config as it is: 16 loader
+    threads, device_decode; 1 epoch of 16 steps, no summaries) twice in
+    this process: with the native reader, then with TFKS_DISABLE_NATIVE=1.
+    Each run's first-group latency, group times and the consumer's wait
+    for each group; the native run without fallbacks, the numpy one
+    without native reads."""
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    cfg = dict(stream_config(), num_epochs=1, save_summary_steps=0, profile_steps=0)
+    out = {}
+    for mode in ("native", "numpy"):
+        model = os.path.join(root, "stream_" + mode)
+        cfg_path = write_json(os.path.join(root, "stream_%s.json" % mode), cfg)
+        waits = []
+        native_counts_reset()
+        if mode == "numpy":
+            os.environ["TFKS_DISABLE_NATIVE"] = "1"
+        try:
+            run = drive(torch, cli_train.main, [
+                "--config", cfg_path, "--device", device, train["data"], train["spklist"],
+                valid["data"], valid["spklist"], model], waits=waits)
+        finally:
+            os.environ.pop("TFKS_DISABLE_NATIVE", None)
+        counts = native_counts()
+        if run["rc"] != 0:
+            raise RuntimeError("cli.train (streaming, %s reader) exited %d" % (mode, run["rc"]))
+        check_launched("streaming path, %s reader" % mode, run, ["cm_dequantize"])
+        if mode == "native":
+            check_no_fallback("streaming path, native reader", counts, "read_batch_codes")
+        elif counts.get("read_batch_codes", 0) or not counts.get("fallback", 0):
+            raise AssertionError("TFKS_DISABLE_NATIVE=1 run: native reader counts %s" % counts)
+        groups, epoch_s = group_times(run["marks"], 0)
+        t0 = time.perf_counter()
+        if mode == "numpy":
+            os.environ["TFKS_DISABLE_NATIVE"] = "1"
+        try:
+            first_loader_group(train, cfg, int(cfg.get("steps_per_dispatch", 8)), 0)
+        finally:
+            os.environ.pop("TFKS_DISABLE_NATIVE", None)
+        alone_s = time.perf_counter() - t0
+        out[mode] = dict(first_group_s=groups[0], group_s=groups, consumer_wait_s=waits,
+                         epoch_s=epoch_s, wall_s=run["wall"], one_worker_group_s=alone_s,
+                         counts=counts, launches=run["launches"])
+        print("streamed epoch, %s reader (%s; fisher config, %d loader threads, device_decode, "
+              "%d groups of 8 float32 steps): first group %.3f s after the epoch's start; "
+              "group times %s s; the consumer's wait for each group %s s; epoch %.3f s; "
+              "whole cli.train %.2f s; one loader worker alone yields its first group in "
+              "%.3f s" % (
+                  mode, CARD, cfg["num_parallel_datasets"], len(groups), groups[0],
+                  ["%.4f" % g for g in groups], ["%.4f" % w for w in waits], epoch_s,
+                  run["wall"], alone_s))
+    print("first-group latency (%s): native %.3f s, numpy %.3f s (%.2fx)"
+          % (CARD, out["native"]["first_group_s"], out["numpy"]["first_group_s"],
+             out["numpy"]["first_group_s"] / out["native"]["first_group_s"]))
+    return out
+
+
+def run_native_reader(torch, root, train, valid, device="cuda"):
+    """Phase 23 on ``device``. Returns the native run's launches and a
+    summary."""
+    t_phase = time.perf_counter()
+    build_native()
+    check_native_reads(train)
+    runs = run_native_vs_numpy(torch, root, train, valid, device)
+    reads = {"short_30d": cm_read_ab("the training corpus", train["data"]),
+             "long_23d": cm_read_ab("long utterances", write_long_tree(root))}
+    print("native reader phase: %.2f s" % (time.perf_counter() - t_phase))
+    summary = {"%s_%s" % (mode, k): v for mode, r in runs.items() for k, v in r.items()
+               if k not in ("counts", "launches")}
+    summary["cm_reads_ms"] = reads
+    return runs["native"]["launches"], summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the multi-input trainer's BNF chain
+# ---------------------------------------------------------------------------
+BNF_NODE = "tdnn5_relu"  # cli.extract_bnf's default: 1500-d at the flagship's width
+BNF_DIM = 1500
+# the flagship (bf16, fused pooling) with the BNF stream concatenated onto
+# its input, streamed (the multi-input trainer has no device pool): 1 epoch
+# of 16 steps in groups of 8, 2 validation batches; the default 4 loader
+# threads and a queue of 2 groups (10 by default; a group of 8 batches of
+# 64 x 400 x 1530 float32 is 1.25 GB on the host)
+MI = dict(FLAGSHIP, num_epochs=1, num_steps_per_epoch=16, steps_per_dispatch=8,
+          learning_rate=0.01, valid_max_iterations=2, show_training_progress=8,
+          check_numerics=True, max_queue_size=2,
+          aux_feature_dim={"bnf": BNF_DIM}, aux_concat_input=["bnf"])
+MI_EXTRACT_CHECK = 4  # extract_mi's embeddings held against a CPU predict
+# the float32 multi-input step on the card (TF32 off) against the CPU's:
+# the loss's relative gap and 1 - the least cosine of the parameters'
+# updates. Each bound sits between what the sound step reads on an H100
+# (loss 2.0e-7 and 3.78e-7, updates 3.73e-8 and 6.1e-8 in two runs) and
+# what its controls (MI_CONTROLS: the step with TF32 on, and the bf16 step)
+# read there in one run (TF32 1.2e-5 and 4.86e-6, bf16 5.83e-4 and
+# 6.62e-5); PERF.md section 6 records them. extract_mi is held to
+# EMB_MIN_COSINE (sound 7.41e-14, TF32 9.31e-8, bf16 2.84e-5).
+MI_LOSS_GAP = 2e-6
+MI_UPDATE_COSINE = 5e-7
+MI_CONTROLS = (("tf32", "float32", True), ("bf16", "bfloat16", False))
+
+
+def write_bnf_inputs(train, valid, root):
+    """One scp of the training and validation utterances (the aux stream
+    must cover both), and a data dir of its speaker maps with an all-voiced
+    vad.scp, so that ``prepare_feats --no-cmvn`` keeps every frame aligned
+    with the main stream."""
+    from tf_kaldi_speaker_tpu_torch.kio import ArkScpWriter
+
+    d = os.path.join(root, "bnf_raw")
+    os.makedirs(d)
+    scp = os.path.join(root, "train_valid_feats.scp")
+    with open(scp, "w") as out:
+        for data in (train, valid):
+            with open(data["feats_scp"]) as f:
+                out.write(f.read())
+    for name in ("utt2spk", "spk2utt"):
+        with open(os.path.join(d, name), "w") as out:
+            for data in (train, valid):
+                with open(os.path.join(data["data"], name)) as f:
+                    out.write(f.read())
+    vad = ArkScpWriter("ark,scp:%s,%s" % (os.path.join(d, "vad.ark"),
+                                          os.path.join(d, "vad.scp")), kind="vec")
+    for data in (train, valid):
+        with open(data["utt2num_frames"]) as f:
+            for line in f:
+                utt, n = line.split()
+                vad.write(utt, np.ones(int(n), np.float32))
+    vad.close()
+    return scp, d
+
+
+def aux_subset_scp(aux_scp, main_scp, out):
+    """``aux_scp``'s lines in ``main_scp``'s key order (extract_mi reads the
+    streams key-aligned)."""
+    with open(aux_scp) as f:
+        aux = dict(line.split(" ", 1) for line in f)
+    with open(main_scp) as f, open(out, "w") as o:
+        for line in f:
+            key = line.split(" ", 1)[0]
+            o.write("%s %s" % (key, aux[key]))
+    return out
+
+
+def _mi_trainer_at(torch, model, device, compute_dtype):
+    """A TrainerMultiInput in ``model``'s state (its last checkpoint)."""
+    from tf_kaldi_speaker_tpu_torch.train.trainer_mi import TrainerMultiInput
+    from tf_kaldi_speaker_tpu_torch.utils.params import Params
+
+    nnet = os.path.join(model, "nnet")
+    params = Params(os.path.join(nnet, "config.json"))
+    params.dict["compute_dtype"] = compute_dtype
+    with open(os.path.join(nnet, "feature_dim")) as f:
+        dim = int(f.read())
+    with open(os.path.join(nnet, "num_speakers")) as f:
+        num_speakers = int(f.read())
+    t = TrainerMultiInput(params, nnet, dim=dim, num_speakers=num_speakers, device=device)
+    t.build("train")
+    t.load()
+    return t
+
+
+def _mi_batch(train, aux, seed, group=1):
+    """One loader draw of MI's layout: (main, {"bnf": ...}, labels) as host
+    arrays, ``group`` batches stacked when group > 1."""
+    from tf_kaldi_speaker_tpu_torch.data import KaldiMultiDataRandomQueue
+
+    q = KaldiMultiDataRandomQueue(train["data"], aux, train["spklist"], num_parallel=1,
+                                  max_qsize=1, num_speakers=MI["num_speakers_per_batch"],
+                                  min_len=MI["min_segment_len"], max_len=MI["max_segment_len"],
+                                  seed=seed, group=group).start()
+    try:
+        features, labels = q.fetch()
+    finally:
+        q.stop()
+    return features["features"], {"bnf": features["bnf"]}, labels
+
+
+def _mi_step(torch, model, device, dtype, batch, tf32=False):
+    """One ``dtype`` multi-input step on ``device`` from the trained state
+    (TF32 on for cuDNN convolutions and matmuls when ``tf32``): the loss
+    and the parameters after it."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    main, aux_b, labels = batch
+    t = _mi_trainer_at(torch, model, device, dtype)
+    backends = torch.backends
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        loss = float(t.train_step(torch.from_numpy(main).to(device),
+                                  torch.from_numpy(labels).to(device), MI["learning_rate"],
+                                  {k: torch.from_numpy(v).to(device) for k, v in aux_b.items()}
+                                  )["loss"])
+    finally:
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+    return loss, flatten(variables_of(t.network_model))
+
+
+def update_min_cosine(before, got, want):
+    """The least cosine, over the parameters, of one step's update on the
+    card (``got`` - ``before``) and the CPU's (``want`` - ``before``), in
+    float64; the biases a BatchNorm follows are left out (their gradient
+    is float32 noise around zero)."""
+    worst = 1.0
+    for path, w in want.items():
+        if path[0] != "params" or (path[-1] == "bias" and path[-2].endswith(("_conv", "_dense"))):
+            continue
+        b = before[path].double().ravel()
+        du, dw = got[path].double().ravel() - b, w.double().ravel() - b
+        worst = min(worst, float(du @ dw / (du.norm() * dw.norm())))
+    return worst
+
+
+def check_mi_step_against_cpu(torch, model, train, aux, device="cuda"):
+    """One float32 multi-input step on the card (TF32 off) against the
+    CPU's from the trained state on one loader batch: the loss within
+    MI_LOSS_GAP and the least cosine of each parameter's update (after -
+    before) within MI_UPDATE_COSINE of 1. MI_CONTROLS are read against the
+    same CPU step and bounds: the float32 step with TF32 on, and the bf16
+    step (the config's compute dtype)."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    batch = _mi_batch(train, aux, 13)
+    before = flatten(variables_of(_mi_trainer_at(torch, model, "cpu", "float32").network_model))
+    loss_cpu, want = _mi_step(torch, model, "cpu", "float32", batch)
+    readings = {}
+    for name, dtype, tf32 in (("sound", "float32", False),) + MI_CONTROLS:
+        loss, got = _mi_step(torch, model, device, dtype, batch, tf32)
+        rel = abs(loss - loss_cpu) / abs(loss_cpu)
+        one_minus = 1.0 - update_min_cosine(before, got, want)
+        readings[name] = dict(loss=loss, loss_gap=rel, update_one_minus_cosine=one_minus)
+        if name == "sound":
+            if not (np.isfinite(loss) and rel <= MI_LOSS_GAP):
+                raise AssertionError("multi-input step: card float32 loss %r vs CPU %r (rel %.3g "
+                                     "> %g)" % (loss, loss_cpu, rel, MI_LOSS_GAP))
+            if not one_minus <= MI_UPDATE_COSINE:
+                raise AssertionError("multi-input step: the updates' 1 - min cosine card vs CPU "
+                                     "%.3g > %g" % (one_minus, MI_UPDATE_COSINE))
+            print("one float32 multi-input step %s + bnf %s, card (TF32 off) vs CPU from the "
+                  "trained state: loss %r vs %r (rel %.3g <= %g); the updates 1 - min cosine "
+                  "%.3g (<= %g) ok" % (list(batch[0].shape), list(batch[1]["bnf"].shape), loss,
+                                       loss_cpu, rel, MI_LOSS_GAP, one_minus, MI_UPDATE_COSINE))
+        else:
+            print("control %s multi-input step vs the CPU's: loss rel gap %.3g (bound <= %g: %s), "
+                  "the updates 1 - min cosine %.3g (bound <= %g: %s)"
+                  % (name, rel, MI_LOSS_GAP, "caught" if rel > MI_LOSS_GAP else "NOT caught",
+                     one_minus, MI_UPDATE_COSINE,
+                     "caught" if one_minus > MI_UPDATE_COSINE else "NOT caught"))
+    return dict(mi_cpu_loss_gap=readings["sound"]["loss_gap"],
+                mi_cpu_update_one_minus_cosine=readings["sound"]["update_one_minus_cosine"],
+                mi_step_controls={k: v for k, v in readings.items() if k != "sound"})
+
+
+def profile_mi_group(torch, model, train, aux, device="cuda"):
+    """One torch.profiler pass over a group of 8 bf16 multi-input steps on
+    a loader group already on the card (after the same 8 as warm-up): the
+    step time, the device's busy and idle share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = _mi_trainer_at(torch, model, device, "bfloat16")
+    main, aux_b, labels = _mi_batch(train, aux, 17, group=8)
+    main, labels = torch.from_numpy(main).to(device), torch.from_numpy(labels).to(device)
+    bnf = torch.from_numpy(aux_b["bnf"]).to(device)
+    lr = MI["learning_rate"]
+
+    def steps():
+        for k in range(8):
+            t.train_step(main[k], labels[k], lr, {"bnf": bnf[k]})
+
+    steps()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, n_events, by_name = device_busy(torch, prof)
+    if not n_events:
+        print("profile: no device events in the trace; device idle share not measured")
+        return {}
+    print("profile (%s), 8 bf16 multi-input steps [64, %d, 30 + %d] on the card under "
+          "torch.profiler: wall %.4f s (%.3f ms a step), device busy %.4f s, device idle "
+          "%.1f%%, %d device events" % (CARD, main.shape[2], BNF_DIM, wall, 1e3 * wall / 8,
+                                        busy_s, 100 * (1 - busy_s / wall), n_events))
+    print_top(by_name, busy_s)
+    return dict(mi_profile_step_ms=1e3 * wall / 8, mi_device_idle=1 - busy_s / wall)
+
+
+def _bf16_predict(torch, trainer, feats, aux):
+    """The checkpoint's embedding in bf16 on its trainer's device: every
+    parameter and buffer cast, as ``cli.extract`` runs a bf16 model."""
+    import copy
+
+    net = copy.deepcopy(trainer.network_model.network).to(torch.bfloat16).eval()
+    dev = trainer.device
+    with torch.inference_mode():
+        _, endpoints = net(torch.from_numpy(feats[None]).to(dev, torch.bfloat16), None,
+                           {k: torch.from_numpy(v[None]).to(dev, torch.bfloat16)
+                            for k, v in aux.items()})
+    node = trainer.params.dict.get("embedding_node", "tdnn6_dense")
+    return endpoints[node].float().cpu().numpy()[0]
+
+
+def check_extract_mi(torch, model, main_scp, aux_scp, xv_scp, device="cuda"):
+    """extract_mi's first MI_EXTRACT_CHECK embeddings against a float32 CPU
+    predict of the same checkpoint: 1 - cosine <= 1 - EMB_MIN_COSINE each.
+    The controls are read against the same CPU embeddings and bound: a
+    predict on ``device`` with TF32 on, and the checkpoint in bf16.
+    Returns (1 - the least cosine, {control: 1 - its least cosine})."""
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp, read_vec_flt_scp
+
+    cpu = _mi_trainer_at(torch, model, "cpu", "float32")
+    card = _mi_trainer_at(torch, model, device, "float32")
+    got = dict(read_vec_flt_scp(xv_scp))
+    aux = dict(read_mat_scp(aux_scp))
+    worst = {"sound": 1.0, "tf32": 1.0, "bf16": 1.0}
+    backends = torch.backends
+    for _, (key, feats) in zip(range(MI_EXTRACT_CHECK), read_mat_scp(main_scp)):
+        a = {"bnf": aux[key][:feats.shape[0]]}
+        want = cpu.predict(feats, a)
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = card.predict(feats, a)
+        finally:
+            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+        for name, e in (("sound", got[key]), ("tf32", tf32),
+                        ("bf16", _bf16_predict(torch, card, feats, a))):
+            worst[name] = min(worst[name], cosine(e, want))
+    if not worst["sound"] >= EMB_MIN_COSINE:
+        raise AssertionError("extract_mi vs a CPU predict: 1 - min cosine %.3g > %.3g"
+                             % (1.0 - worst["sound"], 1.0 - EMB_MIN_COSINE))
+    for name in ("tf32", "bf16"):
+        print("control %s extract_mi vs the CPU predict: 1 - min cosine %.3g (bound <= %.3g: %s)"
+              % (name, 1.0 - worst[name], 1.0 - EMB_MIN_COSINE,
+                 "caught" if worst[name] < EMB_MIN_COSINE else "NOT caught"))
+    return 1.0 - worst["sound"], {k: 1.0 - v for k, v in worst.items() if k != "sound"}
+
+
+def run_multi_input(torch, root, trained, train, valid, device="cuda"):
+    """Phase 24 on ``device``. Returns the path's launches and shapes and a
+    summary."""
+    from tf_kaldi_speaker_tpu_torch.cli import extract_bnf, extract_mi, prepare_feats, train_mi
+
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "mi")
+    os.makedirs(d)
+    scp, bnf_raw = write_bnf_inputs(train, valid, d)
+    stage_s = {}
+
+    def stage(name, fn, argv):
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        stage_s[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError("%s exited %d" % (name, rc))
+
+    stage("extract_bnf", extract_bnf.main, [
+        "--node", BNF_NODE, "--device", device, trained, "scp:" + scp,
+        "ark,scp:%s,%s" % (os.path.join(bnf_raw, "bnf.ark"), os.path.join(bnf_raw, "feats.scp"))])
+    bnf_egs = os.path.join(d, "bnf_egs")
+    stage("prepare_feats --no-cmvn", prepare_feats.main,
+          ["--no-cmvn", "--device", device, bnf_raw, bnf_egs])
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_scp
+
+    _, first = next(iter(read_mat_scp(os.path.join(bnf_egs, "feats.scp"))))
+    if first.shape[1] != BNF_DIM:
+        raise AssertionError("BNFs of width %d, not %d" % (first.shape[1], BNF_DIM))
+    bnf_reads = cm_read_ab("the prepared BNFs", bnf_egs)
+    model = os.path.join(d, "mi_model")
+    cfg_path = write_json(os.path.join(d, "mi.json"), MI)
+    native_counts_reset()
+    waits = []
+    run = drive(torch, train_mi.main, [
+        "--config", cfg_path, "--aux_data", "bnf:" + bnf_egs, "--device", device,
+        train["data"], train["spklist"], valid["data"], valid["spklist"], model], waits=waits)
+    stage_s["train_mi"] = run["wall"]
+    if run["rc"] != 0:
+        raise RuntimeError("cli.train_mi exited %d" % run["rc"])
+    check_no_fallback("multi-input path (train_mi)", native_counts(), "read_submat")
+    K, n = MI["steps_per_dispatch"], MI["num_steps_per_epoch"]
+    losses = [float(m.split("loss ")[1].split()[0]) for name, m in run["logged"]
+              if name == "tfks_torch.trainer" and " loss " in m]
+    if len(losses) != n // K or not np.all(np.isfinite(losses)):
+        raise AssertionError("train_mi: logged losses %s (expected %d finite)" % (losses, n // K))
+    with open(os.path.join(model, "nnet", "valid_loss")) as f:
+        valid_lines = f.read().split("\n")[:-1]
+    if len(valid_lines) != 1 or not np.isfinite(float(valid_lines[0].split()[1])):
+        raise AssertionError("train_mi: valid_loss %s" % valid_lines)
+    groups, _ = group_times(run["marks"], 0)
+    xv = os.path.join(d, "xvector_mi")
+    aux_scp = aux_subset_scp(os.path.join(bnf_egs, "feats.scp"), valid["feats_scp"],
+                             os.path.join(d, "bnf_valid.scp"))
+    ex = drive(torch, extract_mi.main, [
+        "--device", device, "--aux_rspecifier", "bnf:scp:" + aux_scp, model,
+        "scp:" + valid["feats_scp"], "ark,scp:%s.ark,%s.scp" % (xv, xv)])
+    stage_s["extract_mi"] = ex["wall"]
+    if ex["rc"] != 0:
+        raise RuntimeError("cli.extract_mi exited %d" % ex["rc"])
+    with open(valid["feats_scp"]) as f:
+        n_valid = len(f.read().splitlines())
+    with open(xv + ".scp") as f:
+        if len(f.read().splitlines()) != n_valid:
+            raise AssertionError("extract_mi wrote fewer than %d embeddings" % n_valid)
+    worst, extract_controls = check_extract_mi(torch, model, valid["feats_scp"], aux_scp,
+                                               xv + ".scp", device)
+    launches = check_launched("multi-input path (train_mi, bf16, fused pooling)", run,
+                              ["masked_stats_pooling", "masked_stats_pooling_backward"])
+    check_launched("multi-input path (extract_mi, float32)", ex, ["masked_stats_pooling"])
+    shapes = {}
+    for r in (run, ex):
+        for name, counter in r["shapes"].items():
+            shapes.setdefault(name, collections.Counter()).update(counter)
+    for name, count in ex["launches"].items():
+        launches[name] += count
+    t0 = time.perf_counter()
+    _mi_batch(train, {"bnf": bnf_egs}, MI.get("seed", 0), group=K)
+    alone_s = time.perf_counter() - t0
+    print("multi-input train step (%s): %d groups of %d bf16 steps [%d, %d-%d, 30 + %d]: %.3f "
+          "ms a step in the last group (group times %s s, the first with start-up); the "
+          "consumer's wait for each group %s s (%d loader threads; one worker alone yields its "
+          "first group in %.3f s); group losses %s; valid line %s; extract_mi %d embeddings, "
+          "the first %d at 1 - cosine %.3g of a CPU predict (<= %.3g); stage times %s s"
+          % (CARD, len(groups), K, MI["num_speakers_per_batch"], MI["min_segment_len"],
+             MI["max_segment_len"], BNF_DIM, 1e3 * groups[-1] / K, ["%.4f" % g for g in groups],
+             ["%.4f" % w for w in waits], MI.get("num_parallel_datasets", 4), alone_s, losses,
+             valid_lines[0], n_valid, MI_EXTRACT_CHECK, worst, 1.0 - EMB_MIN_COSINE,
+             {k: round(v, 2) for k, v in stage_s.items()}))
+    profile = profile_mi_group(torch, model, train, {"bnf": bnf_egs}, device)
+    gaps = check_mi_step_against_cpu(torch, model, train, {"bnf": bnf_egs}, device)
+    print("multi-input phase: %.2f s" % (time.perf_counter() - t_phase))
+    summary = dict(profile, mi_last_group_step_ms=1e3 * groups[-1] / K, mi_group_s=groups,
+                   mi_consumer_wait_s=waits, mi_one_worker_group_s=alone_s,
+                   mi_stage_s=stage_s, mi_cm_reads_ms=bnf_reads,
+                   mi_extract_one_minus_cosine=worst,
+                   mi_extract_controls=extract_controls, **gaps)
+    return launches, shapes, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the Fisher recipe through the port
+# ---------------------------------------------------------------------------
+FISHER_SCRIPT = os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "fisher", "v1",
+                             "run.sh")
+# synthetic 8 kHz voices: 80 background speakers x 8 utterances (the
+# shipped config draws 64 speakers a batch of chunks up to 400 frames, and
+# filter_egs_dir keeps speakers with 5 utterances of 150 frames), and 10
+# more speakers with 3 enrollment and 3 test utterances each; 7-9 s, about
+# 440-570 voiced frames (a smoke choice: Fisher has about 12,000 speakers
+# of 10-minute sides)
+FISHER_CORPUS = dict(background=80, background_utts=8, eval_speakers=10, eval_utts=6,
+                     min_seconds=7.0, max_seconds=9.0, seed=21)
+# the recipe's cuts: the shipped config's epochs, steps, validation
+# batches and cadences, as the VoxCeleb recipe phase; stage 2's validation
+# split and stage 5's LDA width (80 background speakers)
+FISHER_CUTS = dict(num_epochs=1, num_steps_per_epoch=16, valid_max_iterations=2,
+                   save_checkpoints_steps=16, save_summary_steps=16, show_training_progress=8)
+FISHER_ENV_CUTS = dict(valid_speakers="8", valid_utts="2", lda_dim="32")
+
+
+def write_fisher_tree(root):
+    """FISHER_CORPUS as $data_root/{train_background,enroll,test} (wav.scp,
+    utt2spk) and test/trials ("enrollspk testutt target|nontarget");
+    returns the data root and the seconds of audio."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_wav_data_dir
+
+    c = FISHER_CORPUS
+    made = make_wav_data_dir(os.path.join(root, "voices"), num_speakers=c["background"]
+                             + c["eval_speakers"], utts_per_speaker=c["background_utts"],
+                             min_seconds=c["min_seconds"], max_seconds=c["max_seconds"],
+                             sample_rate=8000, seed=c["seed"])
+    data = os.path.join(root, "data")
+    with open(made["wav_scp"]) as f:
+        wavs = dict(line.split(" ", 1) for line in f)
+    sets = {"train_background": [], "enroll": [], "test": []}
+    for s in range(c["background"] + c["eval_speakers"]):
+        for u in range(c["background_utts"]):
+            utt = "spk%03d_utt%03d" % (s, u)
+            if s < c["background"]:
+                sets["train_background"].append(utt)
+            elif u < c["eval_utts"]:
+                sets["enroll" if u < c["eval_utts"] // 2 else "test"].append(utt)
+    for name, utts in sets.items():
+        os.makedirs(os.path.join(data, name))
+        with open(os.path.join(data, name, "wav.scp"), "w") as f:
+            f.writelines("%s %s" % (u, wavs[u]) for u in utts)
+        with open(os.path.join(data, name, "utt2spk"), "w") as f:
+            f.writelines("%s %s\n" % (u, u.split("_")[0]) for u in utts)
+    enroll_spks = sorted({u.split("_")[0] for u in sets["enroll"]})
+    with open(os.path.join(data, "test", "trials"), "w") as f:
+        for spk in enroll_spks:
+            for utt in sets["test"]:
+                f.write("%s %s %s\n" % (spk, utt, "target" if utt.startswith(spk + "_")
+                                        else "nontarget"))
+    return data, made["seconds"]
+
+
+def run_fisher_recipe(torch, root, device="cuda"):
+    """Phase 25: the port's Fisher run.sh, stages 1-6 one at a time, on
+    the card. Returns the path's launches and shapes and a summary."""
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "fisher")
+    os.makedirs(d)
+    data, seconds = write_fisher_tree(d)
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    with open(FISHER_SCRIPT) as f:
+        script = f.read()
+    if 'py="python -m"' not in script:
+        raise AssertionError("the Fisher run.sh no longer sets py")
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(script.replace('py="python -m"', 'py="%s %s"' % (sys.executable, runner)))
+    with open(FISHER_CONF) as f:
+        cfg_path = write_json(os.path.join(d, "fisher.json"), dict(json.load(f), **FISHER_CUTS))
+    print("fisher recipe (%s): the port's run.sh, config cuts %s, variables %s; corpus %d + %d "
+          "speakers, %.1f s of 8 kHz audio, written in %.2f s"
+          % (CARD, FISHER_CUTS, FISHER_ENV_CUTS, FISHER_CORPUS["background"],
+             FISHER_CORPUS["eval_speakers"], seconds, time.perf_counter() - t_phase))
+    exp = os.path.join(d, "exp")
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=exp, device=device, config=cfg_path,
+               model=os.path.join(exp, "xvector_fisher"), TFKS_LAUNCH_LOG=launch_log,
+               **FISHER_ENV_CUTS)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TFKS_DISABLE_NATIVE", None)
+    stage_s, logs = run_stages(patched, env, range(1, 7), d)
+    for way in ("plda", "cosine"):
+        path = os.path.join(exp, "scores_%s.txt" % way)
+        with open(path) as f:
+            if not f.read().splitlines():
+                raise AssertionError("%s is empty" % path)
+    eers = re.findall(r"EER[^0-9]*([0-9.]+)", logs[5] + logs[6])
+    if len(eers) < 2:
+        raise AssertionError("stages 5-6 reported EERs %s" % eers)
+    launches, shapes, by_module, native = read_launch_log(launch_log)
+    if by_module["train"]["cm_dequantize"] <= 0:
+        raise AssertionError("fisher cli.train launched cm_dequantize %s times"
+                             % by_module["train"]["cm_dequantize"])
+    check_no_fallback("fisher recipe, cli.train", dict(native["train"]), "read_batch_codes")
+    fallbacks = {m: c["fallback"] for m, c in native.items() if c.get("fallback")}
+    if fallbacks:
+        raise AssertionError("fisher recipe: numpy fallbacks by CLI %s" % fallbacks)
+    check_launched("fisher recipe path (run.sh stages 1-6, every process)",
+                   dict(launches=dict(launches), shapes=shapes), ["cm_dequantize"])
+    print("fisher recipe kernel launches by CLI: %s" % json.dumps(
+        {m: dict(c) for m, c in sorted(by_module.items()) if sum(c.values())}))
+    print("fisher recipe stage times on the card (%s; each stage one bash run, every CLI its "
+          "own interpreter): %s s; EERs %s; the phase %.2f s"
+          % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, eers,
+             time.perf_counter() - t_phase))
+    summary = dict(fisher_stage_s=stage_s, fisher_eers=eers, fisher_audio_s=seconds,
+                   fisher_train_native=dict(native["train"]))
+    return dict(launches), shapes, summary
+
+
 def main():
     import logging
 
@@ -2770,8 +3570,17 @@ def main():
     paths["triplet"], triplet_shapes, triplet_summary = run_triplet(torch, WORK_DIR, train, valid)
     replay_mix(torch, {k: v for k, v in triplet_shapes.items() if v}, rows, flush,
                prefix="triplet_mix_")
-    del flush
     print("triplet summary (%s): %s" % (CARD, json.dumps(triplet_summary)))
+    paths["native_reader"], native_summary = run_native_reader(torch, WORK_DIR, train, valid)
+    print("native reader summary (%s): %s" % (CARD, json.dumps(native_summary)))
+    paths["mi"], mi_shapes, mi_summary = run_multi_input(torch, WORK_DIR, trained, train, valid)
+    replay_mix(torch, {k: v for k, v in mi_shapes.items() if v}, rows, flush, prefix="mi_mix_")
+    print("multi-input summary (%s): %s" % (CARD, json.dumps(mi_summary)))
+    paths["fisher"], fisher_shapes, fisher_summary = run_fisher_recipe(torch, WORK_DIR)
+    replay_mix(torch, {k: v for k, v in fisher_shapes.items() if v}, rows, flush,
+               prefix="fisher_mix_")
+    del flush
+    print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

@@ -451,3 +451,156 @@ def test_triplet_phase_configs(tmp_path):
         assert codes.shape == (64, 296, cs.FEAT_DIM)
         lab = labels.numpy().reshape(16, 4)
         assert (lab == lab[:, :1]).all() and len(set(lab[:, 0])) == 16
+
+
+def test_phases_23_to_25_are_wired():
+    """The native reader, multi-input and Fisher phases run in main after
+    the triplet phase, in that order; each adds its path to the kernels
+    line (native_reader, mi, fisher), the multi-input and Fisher shapes
+    are replayed, and the docstring lists them."""
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1]
+    calls = ["run_triplet(", "run_native_reader(", "run_multi_input(", "run_fisher_recipe(",
+             "print(json.dumps({\"kernels\""]
+    at = [main_src.index(c) for c in calls]
+    assert at == sorted(at)
+    for path in ("native_reader", "mi", "fisher"):
+        assert 'paths["%s"]' % path in main_src
+    for prefix in ("mi_mix_", "fisher_mix_"):
+        assert 'prefix="%s"' % prefix in main_src
+    for n in (23, 24, 25):
+        assert "\n%d. " % n in cs.__doc__
+
+
+def test_mi_and_fisher_configs():
+    """The multi-input config is the flagship's (bf16, fused pooling, 64
+    speakers) with the 1500-d BNF stream concatenated, cut in epochs,
+    steps, validation batches, loader threads and queue; the Fisher phase
+    cuts the shipped config as the VoxCeleb recipe phase does, and the
+    script's filter and LDA numbers only."""
+    cs = _chip_smoke()
+    for key, value in cs.FLAGSHIP.items():
+        assert cs.MI[key] == value, key
+    assert cs.MI["aux_feature_dim"] == {"bnf": cs.BNF_DIM} and cs.MI["aux_concat_input"] == ["bnf"]
+    assert cs.BNF_DIM == 1500 and cs.BNF_NODE == "tdnn5_relu"
+    assert (cs.MI["num_epochs"], cs.MI["num_steps_per_epoch"], cs.MI["steps_per_dispatch"],
+            cs.MI["valid_max_iterations"]) == (1, 16, 8, 2)
+    assert cs.FISHER_CUTS == cs.RECIPE_CUTS
+    assert set(cs.FISHER_ENV_CUTS) == {"valid_speakers", "valid_utts", "lda_dim"}
+    with open(cs.FISHER_SCRIPT) as f:
+        script = f.read()
+    for name in cs.FISHER_ENV_CUTS:
+        assert "%s=${%s:-" % (name, name) in script
+    assert 'py="python -m"' in script
+    with open(cs.FISHER_CONF) as f:
+        shipped = json.load(f)
+    assert shipped["num_parallel_datasets"] == 16 and shipped["device_decode"]
+
+
+def test_phase_helpers(tmp_path):
+    """The fallback check, the launch log reader, the Fisher tree writer
+    (enrollment speakers x test utterances as trials) and the aux scp
+    subset in the main stream's key order."""
+    cs = _chip_smoke()
+    cs.check_no_fallback("p", {"read_batch_codes": 3}, "read_batch_codes")
+    for counts in ({"read_batch_codes": 3, "fallback": 1}, {"read_submat": 2}):
+        with pytest.raises(AssertionError, match="fallback"):
+            cs.check_no_fallback("p", counts, "read_batch_codes")
+    log = tmp_path / "l.jsonl"
+    log.write_text("\n".join(json.dumps(r) for r in (
+        {"module": "m.cli.train", "launches": {"cm_dequantize": 2}, "native": {"fallback": 1},
+         "shapes": {"cm_dequantize": [[[1, 2, 3], "float32", 2]]}},
+        {"module": "m.cli.train", "launches": {"cm_dequantize": 1},
+         "shapes": {"cm_dequantize": [[[1, 2, 3], "float32", 1]]}})) + "\n")
+    launches, shapes, by_module, native = cs.read_launch_log(str(log))
+    assert launches == {"cm_dequantize": 3} and by_module["train"]["cm_dequantize"] == 3
+    assert shapes["cm_dequantize"] == {((1, 2, 3), "float32"): 3}
+    assert native["train"] == {"fallback": 1}
+    cs.FISHER_CORPUS = dict(cs.FISHER_CORPUS, background=3, background_utts=4, eval_speakers=2,
+                            eval_utts=4, min_seconds=0.2, max_seconds=0.3)
+    data, seconds = cs.write_fisher_tree(str(tmp_path / "fisher"))
+    counts = {}
+    for name in ("train_background", "enroll", "test"):
+        with open(os.path.join(data, name, "utt2spk")) as f:
+            counts[name] = len(f.read().splitlines())
+        with open(os.path.join(data, name, "wav.scp")) as f:
+            assert all(os.path.exists(line.split()[1]) for line in f)
+    assert counts == {"train_background": 12, "enroll": 4, "test": 4} and seconds > 0
+    with open(os.path.join(data, "test", "trials")) as f:
+        trials = [line.split() for line in f]
+    assert len(trials) == 8 and sum(t[2] == "target" for t in trials) == 4
+    assert all(t[1].startswith(t[0] + "_") == (t[2] == "target") for t in trials)
+    (tmp_path / "aux.scp").write_text("b x:2\na x:1\nc x:3\n")
+    (tmp_path / "main.scp").write_text("a y:1\nc y:3\n")
+    cs.aux_subset_scp(str(tmp_path / "aux.scp"), str(tmp_path / "main.scp"),
+                      str(tmp_path / "out.scp"))
+    assert (tmp_path / "out.scp").read_text() == "a x:1\nc x:3\n"
+
+
+def test_native_and_multi_input_phases_on_cpu(tmp_path, monkeypatch, caplog):
+    """Phases 23 and 24 end to end at a small width with --device cpu
+    (the kernels' launch checks left out: on the CPU the wrappers run their
+    plain versions): the native reads bit-equal to the numpy codec, the
+    streamed epoch with and without the native reader (no fallback in the
+    first), and the BNF chain through extract_bnf, prepare_feats, train_mi
+    and extract_mi with the card-versus-CPU checks."""
+    import logging
+
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    caplog.set_level(logging.INFO)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    asked = []  # the kernels each path must launch on the card
+    monkeypatch.setattr(cs, "check_launched",
+                        lambda path, run, names: asked.append(sorted(names)) or run["launches"])
+    tiny = dict(tdnn_layer_size=16, num_nodes_pooling_layer=24, num_nodes_last_layer=8,
+                num_speakers_per_batch=6, min_segment_len=48, max_segment_len=64)
+    kw = dict(dim=cs.FEAT_DIM, min_len=100, max_len=140, spk_scale=1.0, chan_scale=1.0)
+    train = make_fake_data_dir(str(tmp_path / "train"), num_speakers=8, utts_per_speaker=3,
+                               seed=0, **kw)
+    valid = make_fake_data_dir(str(tmp_path / "valid"), num_speakers=3, utts_per_speaker=2,
+                               seed=1, spk_offset=8, **kw)
+    cfg = cs.write_json(str(tmp_path / "base.json"),
+                        dict(cs.TRAIN, **tiny, num_epochs=1, num_steps_per_epoch=2,
+                             steps_per_dispatch=2))
+    trained = str(tmp_path / "trained")
+    assert cli_train.main(["--config", cfg, "--device", "cpu", train["data"], train["spklist"],
+                           valid["data"], valid["spklist"], trained]) == 0
+    monkeypatch.setattr(cs, "MI", dict(cs.MI, **tiny, aux_feature_dim={"bnf": 24},
+                                       num_parallel_datasets=2))
+    monkeypatch.setattr(cs, "BNF_DIM", 24)
+    monkeypatch.setattr(cs, "MI_EXTRACT_CHECK", 2)
+    monkeypatch.setattr(cs, "READ_AB", dict(cs.READ_AB, batches=2, items=4, length=40))
+    monkeypatch.setattr(cs, "LONG_TREE", dict(cs.LONG_TREE, utts=2, frames=600))
+    launches, shapes, summary = cs.run_multi_input(torch, str(tmp_path), trained, train, valid,
+                                                   device="cpu")
+    assert summary["mi_cpu_loss_gap"] == 0
+    assert summary["mi_extract_one_minus_cosine"] <= 1 - cs.EMB_MIN_COSINE
+    controls = {"tf32", "bf16"}
+    assert set(summary["mi_step_controls"]) == set(summary["mi_extract_controls"]) == controls
+    # the bf16 controls differ from the CPU's float32 step and predict
+    assert summary["mi_step_controls"]["bf16"]["loss_gap"] > 0
+    assert summary["mi_extract_controls"]["bf16"] > 0
+    assert set(summary["mi_cm_reads_ms"]) == {b for b, _ in cs.CM_READS}
+    assert set(summary["mi_stage_s"]) == {"extract_bnf", "prepare_feats --no-cmvn", "train_mi",
+                                          "extract_mi"}
+    # the multi-stream loader ships floats: the pooling kernels, no dequant
+    assert asked == [["masked_stats_pooling", "masked_stats_pooling_backward"],
+                     ["masked_stats_pooling"]]
+    monkeypatch.setattr(cs, "NATIVE_CHECK", dict(items=6, length=90))
+    stream = cs.stream_config
+    monkeypatch.setattr(cs, "stream_config",
+                        lambda: dict(stream(), **tiny, num_parallel_datasets=2,
+                                     num_steps_per_epoch=4, steps_per_dispatch=2))
+    launches, summary = cs.run_native_reader(torch, str(tmp_path), train, valid, device="cpu")
+    for mode in ("native", "numpy"):
+        assert len(summary[mode + "_group_s"]) == len(summary[mode + "_consumer_wait_s"]) == 2
+    assert set(summary["cm_reads_ms"]) == {"short_30d", "long_23d"}
+    for reads in summary["cm_reads_ms"].values():
+        assert set(reads) == {b for b, _ in cs.CM_READS}
+    assert asked[2:] == [["cm_dequantize"]] * 2

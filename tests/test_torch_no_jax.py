@@ -3,7 +3,8 @@ module of tf_kaldi_speaker_tpu_torch, and chip_smoke.py's module-level
 imports, loads neither jax, jaxlib nor flax, nor any module of
 tf_kaldi_speaker_tpu, even with JAX_PLATFORMS set (the JAX package's
 __init__ imports jax when it is); no source file of the port names the JAX
-package in an import; and chip_smoke.py refuses to run (non-zero exit, no
+package in an import, no line of the port's recipe scripts calls one of its
+modules, and the native reader builds from the port's own source; and chip_smoke.py refuses to run (non-zero exit, no
 result line) without a CUDA device or without the rest of the repository."""
 
 import ast
@@ -48,7 +49,12 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 23, mods\n"
+        "assert len(mods) >= 78, mods\n"
+        "assert {'tf_kaldi_speaker_tpu_torch.kio.native_decode',\n"
+        "        'tf_kaldi_speaker_tpu_torch.train.trainer_mi',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_bnf',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_mi',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_mi'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"
@@ -81,6 +87,26 @@ def test_no_source_imports_the_jax_package(path):
             continue
         bad += [n for n in names if n.split(".")[0] == "tf_kaldi_speaker_tpu"]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("recipe", ["voxceleb", "fisher"])
+def test_recipe_copies_call_the_port_only(recipe):
+    with open(os.path.join(PORT, "recipes", recipe, "v1", "run.sh")) as f:
+        lines = [line for line in f if "tf_kaldi_speaker_tpu" in line
+                 and not line.lstrip().startswith("#")]
+    assert lines and all("tf_kaldi_speaker_tpu_torch.cli." in line for line in lines)
+    assert not [line for line in lines if "tf_kaldi_speaker_tpu." in line]
+
+
+def test_native_reader_is_built_from_the_port():
+    """The port's native reader compiles the port's own source into the
+    checkout's build/ and never loads the JAX package's library."""
+    from tf_kaldi_speaker_tpu_torch.kio import native_decode
+
+    assert os.path.dirname(native_decode.SOURCE) == os.path.join(PORT, "native")
+    assert native_decode.BUILD_DIR == os.path.join(ROOT, "build", "tfks_torch_native")
+    with open(native_decode.__file__) as f:
+        assert "libarkdecode" not in f.read()
 
 
 def _run_smoke(cwd):

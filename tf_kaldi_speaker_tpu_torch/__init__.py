@@ -8,19 +8,21 @@ the config reader, the numpy front end and augmentation, the scoring back
 end, the data-directory tools) it carries itself.
 
 - ``kio``      Kaldi ark/scp codec (float matrices and vectors, CM codes),
-               wav files and the data-directory reader
+               wav files, the data-directory reader and the native ark
+               batch reader (``native/ark_decoder.cpp``, built with g++)
 - ``models``   TDNN x-vector network and statistics pooling
 - ``losses``   the margin-softmax family, the triplet family (semi-hard,
                angular, GE2E, generalized angular triplet) and their head
 - ``ops``      the CUDA kernels (CM dequantization, fused statistics
                pooling forward and backward; sources in ``csrc/``), and
                batched MFCC, CMVN and VAD
-- ``data``     speaker index, samplers, prefetch loader, the device pool,
+- ``data``     speaker index, samplers (one stream or a main and aux
+               streams), prefetch loaders, the device pool,
                augmentation (reverberation batched on the card)
 - ``convert``  JAX variable tree <-> the port's modules
 - ``train``    the trainer (train step, optimizers, device-pool epochs,
-               validation) and checkpoints (reads the JAX package's msgpack
-               files)
+               validation), the multi-input trainer and checkpoints (reads
+               the JAX package's msgpack files)
 - ``extract``  bucketed extraction, the decode-on-device pipe, the server
 - ``backend``  cosine/LDA/PLDA scoring, AS-norm, calibration, EER/minDCF
 - ``utils``    config, bookkeeping, synthetic data dirs
@@ -31,8 +33,10 @@ end, the data-directory tools) it carries itself.
                ``fix_data_dir``, ``validate_data_dir``, ``filter_egs_dir``,
                ``sample_validset_spk2utt``, ``copy_feats``), scoring
                (``score``, ``calibrate_scores``, ``copy_plda``,
-               ``plot_det``) and ``compute_gae2e_loss``
-- ``recipes``  ``voxceleb/v1/run.sh``, the VoxCeleb recipe through the port
+               ``plot_det``), ``compute_gae2e_loss``, and the multi-input
+               chain (``extract_bnf``, ``train_mi``, ``extract_mi``)
+- ``recipes``  ``voxceleb/v1/run.sh`` and ``fisher/v1/run.sh``, the VoxCeleb
+               and Fisher recipes through the port
 """
 
 __version__ = "0.1.0"

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.tdnn import EntireNetwork
+from .models.tdnn import EntireNetwork, aux_concat_width
 
 _COLLECTIONS = {"mean": "batch_stats", "var": "batch_stats", "triplet_centers": "loss_stats"}
 
@@ -152,7 +152,8 @@ def network_from_variables(
         flat = flatten(variables)
         if first not in flat:
             raise KeyError("variables hold no %s" % "/".join(first))
-        input_dim = int(np.shape(flat[first])[1])
+        # the first kernel also takes the concatenated aux streams
+        input_dim = int(np.shape(flat[first])[1]) - aux_concat_width(config, network_type)
     net = EntireNetwork(config, int(input_dim), network_type)
     load_variables(net, variables)
     return net.eval()

@@ -4,8 +4,10 @@ Counterpart of ``tf_kaldi_speaker_tpu/data/pipeline.py``:
 
 - ``PrefetchLoader`` is a copy (replacing the reference's multiprocessing
   producer queues, dataset/data_loader.py:310-414): worker *threads* (the
-  decode is numpy and releases the GIL) fill a bounded queue; worker i uses
-  seed ``base_seed + i``.
+  native reader and numpy release the GIL) fill a bounded queue; worker i
+  uses seed ``base_seed + i``. Each worker closes its own sampler when it
+  ends (the JAX copy closes them in ``stop()``, under a worker whose join
+  timed out).
 - :func:`device_prefetch` is ``device_prefetch`` in PyTorch's idiom: a
   transfer thread pins each host batch and copies it to the card with
   ``non_blocking=True`` on a side CUDA stream, ``depth`` batches ahead of
@@ -54,11 +56,9 @@ class PrefetchLoader:
         self.threads = []
         self._done = 0
         self._done_lock = threading.Lock()
-        self._samplers = []
 
     def _work(self, worker_id: int) -> None:
         sampler = self.sampler_factory(self.base_seed + worker_id)
-        self._samplers.append(sampler)
         try:
             for batch in sampler:
                 while not self.stop_event.is_set():
@@ -70,6 +70,12 @@ class PrefetchLoader:
                 if self.stop_event.is_set():
                     return
         finally:
+            # The worker closes its own sampler: a stop() whose join timed
+            # out (a worker still inside a large batch) must not close the
+            # readers under it.
+            close = getattr(sampler, "close", None)
+            if close:
+                close()
             with self._done_lock:
                 self._done += 1
 
@@ -114,11 +120,6 @@ class PrefetchLoader:
             pass
         for t in self.threads:
             t.join(timeout=5.0)
-        for s in self._samplers:
-            close = getattr(s, "close", None)
-            if close:
-                close()
-        self._samplers = []
 
 
 def device_prefetch(iterator: Iterator, device, depth: int = 2,

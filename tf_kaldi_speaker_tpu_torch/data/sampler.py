@@ -1,14 +1,16 @@
-"""Batch samplers: random N-speaker x M-segment chunks and one-pass sequential.
+"""Batch samplers: random N-speaker x M-segment chunks and one-pass
+sequential, over one feature stream or a main and named auxiliary streams.
 
-A copy of ``RandomChunkSampler``, ``SequentialChunkSampler``,
-``bucket_lengths`` and ``DataOutOfRange`` from
-``tf_kaldi_speaker_tpu/data/sampler.py`` (reference
-dataset/data_loader.py:229-573). Per-batch lengths are drawn from a small
-bucket set spanning [min_len, max_len]; batches are exactly bucket-length
-(no padding), and sampling is deterministic given the seed. The draws are
-the JAX package's, in its order (``tests/test_torch_pool.py``); rows are
-read one by one through the port's reader, where the JAX package calls its
-native batch decoder when it is built.
+A copy of ``tf_kaldi_speaker_tpu/data/sampler.py`` (reference
+dataset/data_loader.py:229-573, 580-826). Per-batch lengths are drawn from a
+small bucket set spanning [min_len, max_len]; batches are exactly
+bucket-length (no padding), and sampling is deterministic given the seed.
+The draws are the JAX package's, in its order (``tests/test_torch_pool.py``,
+``tests/test_torch_native_decode.py``, ``tests/test_torch_trainer_mi.py``).
+``RandomChunkSampler`` reads a batch in one threaded native call
+(``kio/native_decode.py``) and row by row through the numpy codec when the
+native reader cannot serve it; the other samplers read row by row through
+``FeatureReader.read_segment``, whose ranged reads are native too.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..kio.native_decode import decode_batch_fast, read_batch_codes_fast
 from ..kio.reader import FeatureReader
-from .speaker_index import get_speaker_info
+from .speaker_index import get_aux_speaker_info, get_speaker_info
 
 
 class DataOutOfRange(Exception):
@@ -122,23 +125,51 @@ class RandomChunkSampler:
                 )
             for j, feat in enumerate(rng.sample(feature_list, self.num_segments)):
                 plan.append((i * self.num_segments + j, feat))
-        # The chunk starts are drawn for the whole plan first, then read.
-        starts = [
-            rng.randint(0, reader.utt2num_frames[seg.split(" ")[0]] - batch_length)
-            if self.shuffle else 0
-            for _, seg in plan
-        ]
         if self.raw_codes:
             codes = np.zeros((B, batch_length, reader.dim), dtype=np.uint8)
             headers = np.zeros((B, 4, reader.dim), dtype=np.float32)
-            for (row, seg), start in zip(plan, starts):
-                codes[row], headers[row], _ = reader.read_segment_codes(
-                    seg, batch_length, start=start)
+            self._read_codes_plan(reader, rng, plan, codes, headers, batch_length)
             return codes, headers, labels
         features = np.zeros((B, batch_length, reader.dim), dtype=np.float32)
-        for (row, seg), start in zip(plan, starts):
-            features[row], _ = reader.read_segment(seg, batch_length, start=start)
+        self._decode_plan(reader, rng, plan, features, batch_length)
         return features, labels
+
+    def _plan_items(self, reader, rng, plan, batch_length):
+        """The chunk starts, drawn for the whole plan before any read:
+        (row, filename, offset, start, length, segment) per row."""
+        items = []
+        for row, seg in plan:
+            utt, rxfile = seg.split(" ")
+            filename, offset = rxfile.rsplit(":", 1)
+            n = reader.utt2num_frames[utt]
+            start = rng.randint(0, n - batch_length) if self.shuffle else 0
+            items.append((row, filename, int(offset), start, batch_length, seg))
+        return items
+
+    def _decode_plan(self, reader, rng, plan, features, batch_length):
+        """Decode the batch: one threaded native call, else row by row."""
+        items = self._plan_items(reader, rng, plan, batch_length)
+        scratch = np.empty((len(items), batch_length, reader.dim), np.float32)
+        if decode_batch_fast([(f, o, s, n) for _, f, o, s, n, _ in items], scratch):
+            for k, (row, *_rest) in enumerate(items):
+                features[row] = scratch[k]
+            return
+        for row, _f, _o, start, length, seg in items:
+            features[row], _ = reader.read_segment(seg, length, start=start)
+
+    def _read_codes_plan(self, reader, rng, plan, codes, headers, batch_length):
+        """Raw codes of the batch: one threaded native call, else row by row."""
+        items = self._plan_items(reader, rng, plan, batch_length)
+        c_scratch = np.empty((len(items), batch_length, reader.dim), np.uint8)
+        h_scratch = np.empty((len(items), 4, reader.dim), np.float32)
+        if read_batch_codes_fast([(f, o, s, n) for _, f, o, s, n, _ in items],
+                                 c_scratch, h_scratch):
+            for k, (row, *_rest) in enumerate(items):
+                codes[row] = c_scratch[k]
+                headers[row] = h_scratch[k]
+            return
+        for row, _f, _o, start, length, seg in items:
+            codes[row], headers[row], _ = reader.read_segment_codes(seg, length, start=start)
 
     def close(self) -> None:
         if self.reader is not None:
@@ -210,3 +241,185 @@ class SequentialChunkSampler:
         if self.reader is not None:
             self.reader.close()
             self.reader = None
+
+
+class MultiRandomChunkSampler:
+    """Random sampler over a main + named auxiliary feature streams.
+
+    Yields (dict name -> [B, L, D_name], labels), the main stream under
+    "features"; with ``group`` > 1 each array gains a leading axis of K
+    batches at one bucket length. Aux chunks start at the SAME frame as the
+    main chunk (reference data_loader.py:652-661). Each row's start is drawn
+    inside the main stream's read, between one speaker's draws and the
+    next's, as in the JAX sampler.
+    """
+
+    def __init__(
+        self,
+        data_dir: str,
+        aux_data: Dict[str, str],
+        spklist: str,
+        num_speakers: int,
+        num_segments: int = 1,
+        min_len: int = 200,
+        max_len: int = 400,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_buckets: int = 8,
+        group: int = 1,
+    ):
+        self.data_dir = data_dir
+        self.aux_data = aux_data
+        self.spk2features, _, spk2index = get_aux_speaker_info(data_dir, aux_data, spklist)
+        self.num_total_speakers = len(spk2index)
+        self.num_speakers = num_speakers
+        self.num_segments = num_segments
+        self.buckets = bucket_lengths(min_len, max_len, num_buckets)
+        self.shuffle = shuffle
+        self.rng = random.Random(seed)
+        self.length_rng = random.Random(seed)
+        self.group = int(group)
+        self.readers: Optional[Dict[str, FeatureReader]] = None
+
+    def __iter__(self):
+        if self.readers is None:
+            self.readers = {"features": FeatureReader(self.data_dir)}
+            for name, d in self.aux_data.items():
+                self.readers[name] = FeatureReader(d)
+        speakers = list(self.spk2features.keys())
+        if len(speakers) < self.num_speakers:
+            speakers = speakers * (self.num_speakers // len(speakers) + 1)
+        while True:
+            batch_length = self.length_rng.choice(self.buckets)
+            if self.group == 1:
+                yield self._one_batch(speakers, batch_length)
+            else:
+                parts = [
+                    self._one_batch(speakers, batch_length)
+                    for _ in range(self.group)
+                ]
+                feats = {
+                    name: np.stack([p[0][name] for p in parts])
+                    for name in parts[0][0]
+                }
+                yield feats, np.stack([p[1] for p in parts])
+
+    def _one_batch(self, speakers, batch_length):
+        rng = self.rng
+        main = self.readers["features"]
+        B = self.num_speakers * self.num_segments
+        batch_speakers = rng.sample(speakers, self.num_speakers)
+        features = {
+            name: np.zeros((B, batch_length, r.dim), dtype=np.float32)
+            for name, r in self.readers.items()
+        }
+        labels = np.zeros((B,), dtype=np.int32)
+        for i in range(self.num_speakers):
+            spk = batch_speakers[i]
+            cand: List[Dict[str, str]] = []
+            while not cand:
+                cand = [
+                    fdict
+                    for fdict in self.spk2features[spk]
+                    if main.utt2num_frames[fdict["features"].split(" ")[0]]
+                    > batch_length
+                ]
+                if not cand:
+                    spk = rng.choice(list(set(speakers) - set(batch_speakers)))
+                    batch_speakers[i] = spk
+            labels[i * self.num_segments : (i + 1) * self.num_segments] = spk
+            if len(cand) < self.num_segments:
+                cand = cand * (self.num_segments // len(cand) + 1)
+            for j, fdict in enumerate(rng.sample(cand, self.num_segments)):
+                row = i * self.num_segments + j
+                mat, start = main.read_segment(
+                    fdict["features"], batch_length, shuffle=self.shuffle, rng=rng
+                )
+                features["features"][row] = mat
+                for name in self.aux_data:
+                    features[name][row], _ = self.readers[name].read_segment(
+                        fdict[name], batch_length, start=start
+                    )
+        return features, labels
+
+    def close(self) -> None:
+        if self.readers:
+            for r in self.readers.values():
+                r.close()
+            self.readers = None
+
+
+class MultiSequentialChunkSampler:
+    """One-pass multi-stream loader (reference KaldiMultiDataSeqQueue,
+    data_loader.py:775-826): dict-of-features batches, aux chunks cut at the
+    same start frame as the main chunk."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        aux_data: Dict[str, str],
+        spklist: str,
+        batch_size: int = 128,
+        min_len: int = 200,
+        max_len: int = 400,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_buckets: int = 8,
+        feature_list=None,
+        features2spk=None,
+    ):
+        self.data_dir = data_dir
+        self.aux_data = aux_data
+        if feature_list is None:
+            spk2features, features2spk, _ = get_aux_speaker_info(data_dir, aux_data, spklist)
+            feature_list = [f for feats in spk2features.values() for f in feats]
+        self.feature_list = list(feature_list)
+        self.features2spk = features2spk
+        self.batch_size = batch_size
+        self.buckets = bucket_lengths(min_len, max_len, num_buckets)
+        self.shuffle = shuffle
+        self.rng = random.Random(seed)
+        if shuffle:
+            self.rng.shuffle(self.feature_list)
+        self.readers: Optional[Dict[str, FeatureReader]] = None
+
+    @property
+    def num_batches(self) -> int:
+        return -(-len(self.feature_list) // self.batch_size)
+
+    def __iter__(self):
+        if self.readers is None:
+            self.readers = {"features": FeatureReader(self.data_dir)}
+            for name, d in self.aux_data.items():
+                self.readers[name] = FeatureReader(d)
+        rng = self.rng
+        main = self.readers["features"]
+        for i in range(self.num_batches):
+            batch = self.feature_list[i * self.batch_size : (i + 1) * self.batch_size]
+            batch_length = rng.choice(self.buckets)
+            for fdict in batch:
+                batch_length = min(
+                    batch_length, main.utt2num_frames[fdict["features"].split(" ")[0]]
+                )
+            features = {
+                name: np.zeros((len(batch), batch_length, r.dim), dtype=np.float32)
+                for name, r in self.readers.items()
+            }
+            labels = np.zeros((len(batch),), dtype=np.int32)
+            for j, fdict in enumerate(batch):
+                mat, start = main.read_segment(
+                    fdict["features"], batch_length, shuffle=self.shuffle, rng=rng
+                )
+                features["features"][j] = mat
+                for name in self.aux_data:
+                    features[name][j], _ = self.readers[name].read_segment(
+                        fdict[name], batch_length, start=start
+                    )
+                labels[j] = self.features2spk[fdict["features"]]
+            yield features, labels
+
+    def close(self) -> None:
+        if self.readers:
+            for r in self.readers.values():
+                r.close()
+            self.readers = None

@@ -3,10 +3,13 @@
 Counterpart of ``FeatureReader`` in ``tf_kaldi_speaker_tpu/kio/reader.py``
 (reference ``dataset/kaldi_io.py:40-150``): one open fd per ark file,
 chunk reads located through ``utt2num_frames``, and raw compressed codes for
-the device pool. It decodes through the port's own codec (``kio/ark.py``):
-a chunk read decodes the whole matrix and slices it, which gives the same
-values as the JAX package's partial reads (the decode is elementwise).
-``tests/test_torch_pool.py`` holds it equal to the JAX reader.
+the device pool. A ranged read (:meth:`FeatureReader.read_segment` with a
+length) goes through the native reader (``kio/native_decode.py``), which
+reads and decodes only the requested rows, as the JAX reader does; where
+that cannot serve it, the port's numpy codec (``kio/ark.py``) decodes the
+whole matrix and slices it, the same values (the decode is elementwise).
+``tests/test_torch_pool.py`` and ``tests/test_torch_native_decode.py`` hold
+it equal to the JAX reader.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from . import ark
+from .native_decode import read_submat_fast
 
 
 class FeatureReader:
@@ -98,6 +102,11 @@ class FeatureReader:
     ) -> Tuple[np.ndarray, Optional[int]]:
         """Read the requested row range (the whole matrix for length None)."""
         length, start = self._chunk(segment, length, shuffle, start, rng)
+        if length is not None:
+            filename, offset = segment.split(" ")[1].rsplit(":", 1)
+            fast = read_submat_fast(filename, int(offset), start, length)
+            if fast is not None:
+                return fast, start
         mat = ark._read_mat_binary(self._open(segment))
         if length is None:
             return mat, start

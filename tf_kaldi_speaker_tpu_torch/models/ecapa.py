@@ -177,8 +177,12 @@ class ECAPA(nn.Module):
         init_affine_(self.embedding, generator)
 
     def forward(
-        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        aux_features: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if aux_features:
+            features = torch.cat([features] + [aux_features[k] for k in sorted(aux_features)],
+                                 dim=-1)
         endpoints: Dict[str, torch.Tensor] = {}
         B, L, _ = features.shape
         if mask is None:

@@ -100,7 +100,8 @@ class BasicBlock(nn.Module):
 
 class ResNet34(nn.Module):
     """r-vector trunk + pooling + embedding; ``forward`` returns
-    (embedding, endpoints). ``input_dim`` (the feature dim F) sets the
+    (embedding, endpoints). ``input_dim`` (the feature dim F, plus the
+    widths of the aux streams concatenated on the frequency axis) sets the
     flattened width F'·C that the pooling and the embedding layer take."""
 
     def __init__(self, config: Dict[str, Any], input_dim: int,
@@ -152,8 +153,12 @@ class ResNet34(nn.Module):
         init_affine_(self.embedding, generator)
 
     def forward(
-        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        aux_features: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if aux_features:
+            features = torch.cat([features] + [aux_features[k] for k in sorted(aux_features)],
+                                 dim=-1)
         endpoints: Dict[str, torch.Tensor] = {}
         B, L, _ = features.shape
         if mask is None:

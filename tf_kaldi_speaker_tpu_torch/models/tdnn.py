@@ -18,11 +18,21 @@ sharing its parameters, for the exact long-utterance extraction.
 ``.train()`` / ``.eval()`` select the JAX package's ``train`` flag: in train
 mode every BatchNorm normalizes with the batch's statistics and updates its
 running ones (momentum ``batchnorm_momentum``, default 0.99).
+
+Multi-input models (``aux_feature_dim``, a dict of stream name -> width)
+take ``aux_features``, a dict of [B, L, width] streams frame-aligned with
+the input. The TDNN exposes each as the endpoint ``aux_<name>`` (a pooling
+may tap it, ``att_key_input: "aux_bnf"``) and concatenates the streams of
+``aux_concat_input`` onto its input in that list's order (JAX
+``tdnn.py:54-66``); ECAPA and ResNet34 concatenate every stream in sorted
+name order (JAX ``ecapa.py:135-138``, ``resnet.py:90-94``). Flax sizes the
+first layer from the input it sees; here :func:`aux_concat_names` gives the
+streams whose widths the first layer adds to the feature dim.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,8 +47,32 @@ TDNN_TOTAL_CONTEXT = 14
 CONV_LAYERS = ((1, 5), (2, 5), (3, 7))
 
 
+def aux_concat_names(config: Dict[str, Any], network_type: str = "tdnn") -> List[str]:
+    """The aux streams a trunk concatenates onto its input, in its order:
+    ``aux_concat_input`` for the TDNN, every ``aux_feature_dim`` stream in
+    sorted order for ECAPA and ResNet34."""
+    dims = config.get("aux_feature_dim") or {}
+    if network_type == "tdnn":
+        names = list(config.get("aux_concat_input") or [])
+    else:
+        names = sorted(dims)
+    missing = [n for n in names if n not in dims]
+    if missing:
+        raise ValueError("aux_concat_input names %s without a width in aux_feature_dim %s"
+                         % (missing, dict(dims)))
+    return names
+
+
+def aux_concat_width(config: Dict[str, Any], network_type: str = "tdnn") -> int:
+    """The width the concatenated aux streams add to the trunk's input."""
+    dims = config.get("aux_feature_dim") or {}
+    return sum(int(dims[n]) for n in aux_concat_names(config, network_type))
+
+
 class TDNN(nn.Module):
-    """x-vector TDNN; ``forward`` returns (last_layer_output, endpoints)."""
+    """x-vector TDNN; ``forward`` returns (last_layer_output, endpoints).
+    ``input_dim`` is the first conv's input width (the feature dim plus the
+    concatenated aux widths)."""
 
     def __init__(self, config: Dict[str, Any], input_dim: int,
                  generator: Optional[torch.Generator] = None):
@@ -66,6 +100,9 @@ class TDNN(nn.Module):
         widths = {"tdnn%d_%s" % (i, kind): width
                   for i in (1, 2, 3, 4) for kind in ("conv", "dense", "bn", "relu")}
         widths.update({"tdnn5_" + kind: pool_width for kind in ("dense", "bn", "relu")})
+        widths.update({"aux_" + name: int(d)
+                       for name, d in (cfg.get("aux_feature_dim") or {}).items()})
+        self.aux_concat = aux_concat_names(cfg)
         self.pooling_type = cfg["pooling_type"]
         pooling = make_pooling(cfg, pool_width, widths)
         self.add_module(self.pooling_type, pooling)
@@ -131,9 +168,16 @@ class TDNN(nn.Module):
         return x
 
     def forward(
-        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        aux_features: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         endpoints: Dict[str, torch.Tensor] = {}
+        if aux_features:
+            for name, aux in aux_features.items():
+                endpoints["aux_" + name] = aux
+            if self.aux_concat:
+                features = torch.cat([features] + [aux_features[n] for n in self.aux_concat],
+                                     dim=-1)
         x = self.frames(features, endpoints)
         if mask is not None:
             # A frame survives the VALID convs iff its receptive field was
@@ -187,12 +231,14 @@ class EntireNetwork(nn.Module):
     trainer.py:168-188); the final output lands in ``endpoints["output"]``.
     ``network_type`` selects the trunk (JAX ``tdnn.py:209-244``), held as
     the submodule ``tdnn``, ``ecapa`` or ``resnet``; ``output_dim`` is its
-    output width."""
+    output width. ``input_dim`` is the feature dim; the trunk's first layer
+    also takes the concatenated aux streams' widths."""
 
     def __init__(self, config: Dict[str, Any], input_dim: int,
                  network_type: str = "tdnn",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        input_dim = int(input_dim) + aux_concat_width(config, network_type)
         if network_type == "tdnn":
             trunk = TDNN(config, input_dim, generator)
         elif network_type == "ecapa_tdnn":
@@ -215,9 +261,10 @@ class EntireNetwork(nn.Module):
         return getattr(self, NETWORK_NAMES[self.network_type])
 
     def forward(
-        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, features: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        aux_features: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        out, endpoints = self.trunk(features, mask)
+        out, endpoints = self.trunk(features, mask, aux_features)
         endpoints["output"] = out
         if self.config.get("feature_norm", False):
             out = l2_scaling(out, self.config["feature_scaling_factor"])

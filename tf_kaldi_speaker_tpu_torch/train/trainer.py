@@ -44,6 +44,8 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
   and travel through checkpoints, ``--cont`` and fine-tuning.
 - :meth:`Trainer.get_finetune_model` (``:748-787``) and
   :meth:`Trainer.train_tune_lr` (``:1268-1317``).
+- Multi-input models (``train/trainer_mi.py``): :meth:`Trainer.train_step`
+  and :meth:`Trainer.valid` take the aux streams beside the main one.
 
 Not ported, and refused where a config asks for it: ``ShardedDevicePool``
 (``pool_sharded``, multi-card, ROADMAP.md §1 item 7).
@@ -63,7 +65,8 @@ from torch import nn
 from torch.func import functional_call
 
 from .. import convert
-from ..data import (DataOutOfRange, KaldiDataRandomQueue, KaldiDataSeqQueue, bucket_lengths,
+from ..data import (DataOutOfRange, KaldiDataRandomQueue, KaldiDataSeqQueue,
+                    KaldiMultiDataRandomQueue, KaldiMultiDataSeqQueue, bucket_lengths,
                     device_prefetch)
 from ..data.device_pool import DevicePool, gather_chunks
 from ..losses import STRUCTURAL_LOSSES, LossHead
@@ -95,8 +98,8 @@ class XVectorModel(nn.Module):
                                 generator)
 
     def forward(self, features, labels, step=0, margin_override=None, mask=None,
-                sample_weight=None, aux_enabled=True, loss_func=None):
-        out, endpoints = self.network(features, mask)
+                sample_weight=None, aux_enabled=True, loss_func=None, aux_features=None):
+        out, endpoints = self.network(features, mask, aux_features)
         loss, ep = self.softmax(out, labels, step, margin_override, sample_weight,
                                 aux_enabled, loss_func)
         endpoints.update(ep)
@@ -207,6 +210,20 @@ def _group_mean(group: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]
     return {key: torch.mean(torch.stack([m[key] for m in group])) for key in group[0]}
 
 
+def _to(aux: Optional[Dict[str, torch.Tensor]], device) -> Optional[Dict[str, torch.Tensor]]:
+    return None if aux is None else {k: v.to(device) for k, v in aux.items()}
+
+
+def _split_streams(features, labels):
+    """A loader batch as (main features, aux dict or None, labels) with the
+    features as tensors: the multi-stream loaders give a dict of streams,
+    the main one under "features"."""
+    if not isinstance(features, dict):
+        return torch.from_numpy(features), None, labels
+    aux = {k: torch.from_numpy(v) for k, v in features.items() if k != "features"}
+    return torch.from_numpy(features["features"]), aux, labels
+
+
 class Trainer:
     """Owns model assembly, the train step, the data feeds and the
     checkpoint store. ``device`` is where everything runs (``cuda`` unless
@@ -270,11 +287,13 @@ class Trainer:
     # ------------------------------------------------------------------
     # Steps
     # ------------------------------------------------------------------
-    def train_step(self, features: torch.Tensor, labels: torch.Tensor,
-                   lr: float) -> Dict[str, torch.Tensor]:
+    def train_step(self, features: torch.Tensor, labels: torch.Tensor, lr: float,
+                   aux_features: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One step on a batch on the trainer's device; returns the step's
         loss, L2 term and accuracy as 0-d float32 tensors (no host
-        synchronization). One card pads no rows, so the JAX step's row
+        synchronization). ``aux_features`` (multi-input models) are cast
+        like the features. One card pads no rows, so the JAX step's row
         weights have no counterpart here."""
         cfg = self.params.dict
         wreg = float(cfg.get("weight_l2_regularizer", 0.0))
@@ -284,8 +303,12 @@ class Trainer:
         model = self.network_model.train()
         p = {k: v.to(torch.bfloat16) for k, v in params.items()} if bf16 else params
         feats = features.to(torch.bfloat16) if bf16 else features
+        kwargs: Dict[str, Any] = {"step": self.step}
+        if aux_features is not None:
+            kwargs["aux_features"] = {k: v.to(torch.bfloat16) if bf16 else v
+                                      for k, v in aux_features.items()}
         frozen_stats = [b.clone() for b in self._frozen_stats]
-        loss, endpoints = functional_call(model, p, (feats, labels), {"step": self.step})
+        loss, endpoints = functional_call(model, p, (feats, labels), kwargs)
         loss = loss.to(torch.float32)
         reg = l2_regularization(params, wreg, out_wreg)
         # the self-attention pooling's head-diversity penalty (trainer.py:349)
@@ -294,7 +317,10 @@ class Trainer:
                    else penalty.to(torch.float32))
         total = loss + reg + penalty
         leaves = list(params.values())
-        grads = list(torch.autograd.grad(total, leaves))
+        # A parameter off the loss's graph (a pooling that taps an aux
+        # stream only) gets a zero gradient, as under jax.grad.
+        grads = [torch.zeros_like(p) if g is None else g for p, g in
+                 zip(leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
         with torch.no_grad():
             logits = endpoints.get("logits")  # none for the triplet family
             acc = (torch.zeros((), device=loss.device) if logits is None else
@@ -422,12 +448,7 @@ class Trainer:
         from the device pool (``device_pool: true``) or the streaming
         loader. Mid-epoch --cont resumes the remainder of the epoch."""
         cfg = self.params.dict
-        num_steps = int(cfg["num_steps_per_epoch"])
-        step0 = self.step
-        steps_left = num_steps - step0 % num_steps
-        K = max(1, min(int(cfg.get("steps_per_dispatch", 8)), steps_left))
-        while steps_left % K:
-            K -= 1
+        step0, steps_left, K = self._epoch_plan()
         if bool(cfg.get("device_pool", False)):
             if bool(cfg.get("pool_sharded", False)):
                 raise NotImplementedError(
@@ -436,6 +457,22 @@ class Trainer:
             groups = self._pool_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
         else:
             groups = self._stream_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
+        self._run_epoch(cfg, groups, K, step0)
+
+    def _epoch_plan(self) -> Tuple[int, int, int]:
+        """(step0, steps left in the epoch, K): K = ``steps_per_dispatch``
+        cut to divide the steps left (trainer.py:861-880)."""
+        num_steps = int(self.params.dict["num_steps_per_epoch"])
+        step0 = self.step
+        steps_left = num_steps - step0 % num_steps
+        K = max(1, min(int(self.params.dict.get("steps_per_dispatch", 8)), steps_left))
+        while steps_left % K:
+            K -= 1
+        return step0, steps_left, K
+
+    def _run_epoch(self, cfg, groups, K: int, step0: int) -> None:
+        """Drive an epoch's groups: ``_post_group`` after each, a stop poll,
+        the profiler window flushed, a checkpoint at the step reached."""
         summary_steps = int(cfg.get("save_summary_steps", 0))
         writer = SummaryWriter(self.model) if summary_steps else None
         t0 = time.time()
@@ -623,9 +660,11 @@ class Trainer:
                 stream.close()
 
     @torch.no_grad()
-    def embed(self, features: torch.Tensor) -> torch.Tensor:
+    def embed(self, features: torch.Tensor,
+              aux_features: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Eval-mode network output (``endpoints["output"]``), float32."""
-        out, _ = self.network_model.eval().network(features.to(self.device))
+        out, _ = self.network_model.eval().network(features.to(self.device), None,
+                                                   _to(aux_features, self.device))
         return out
 
     def _valid_loss_func(self) -> Optional[str]:
@@ -635,7 +674,8 @@ class Trainer:
 
     @torch.no_grad()
     def valid_loss(self, features: torch.Tensor, labels: torch.Tensor,
-                   weights: torch.Tensor) -> torch.Tensor:
+                   weights: torch.Tensor,
+                   aux_features: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Eval-mode loss with the margin neutralized (trainer.py:589-602).
         ``weights`` [B] is a host tensor (0 = a padded row); a structural
         loss cannot weight a row out, so it refuses padded rows
@@ -647,14 +687,18 @@ class Trainer:
         loss, _ = self.network_model.eval()(
             features.to(self.device), labels.to(self.device), self.step,
             margin_override=VALID_MARGIN_NEUTRAL.get(self.loss_type),
-            sample_weight=weights.to(self.device), aux_enabled=False, loss_func=loss_func)
+            sample_weight=weights.to(self.device), aux_enabled=False, loss_func=loss_func,
+            aux_features=_to(aux_features, self.device))
         return loss
 
     def valid(self, data_dir: str, spklist: str, batch_type: str = "softmax",
-              output_embeddings: bool = False
+              output_embeddings: bool = False, aux_data: Optional[Dict[str, str]] = None
               ) -> Tuple[float, Optional[np.ndarray], Optional[np.ndarray]]:
         """Validation: optional embedding dump pass + streamed loss pass
-        (reference trainer.py:592-706). Returns (loss, embeddings, labels)."""
+        (reference trainer.py:592-706). Returns (loss, embeddings, labels).
+        ``aux_data`` (name -> data dir; multi-input models) reads the aux
+        streams beside the main one through the multi-stream loaders, as
+        the JAX ``TrainerMultiInput.valid`` does."""
         if batch_type not in ("softmax", "end2end"):
             raise ValueError("Unknown batch_type %s" % batch_type)
         if batch_type == "softmax" and self._valid_loss_func() == "e2e_valid_loss":
@@ -668,12 +712,26 @@ class Trainer:
         batch_size = int(cfg.get("num_speakers_per_batch", 64)) * int(
             cfg.get("num_segments_per_speaker", 1))
         lengths = dict(min_len=int(cfg.get("min_segment_len", 200)),
-                       max_len=int(cfg.get("max_segment_len", 400)),
-                       num_buckets=int(cfg.get("num_buckets", 8)))
+                       max_len=int(cfg.get("max_segment_len", 400)))
+        if aux_data is None:
+            lengths["num_buckets"] = int(cfg.get("num_buckets", 8))
+
+            def seq_queue(**kw):
+                return KaldiDataSeqQueue(data_dir, spklist, **kw)
+
+            def random_queue(**kw):
+                return KaldiDataRandomQueue(data_dir, spklist, **kw)
+        else:
+            # the JAX multi-stream loaders take the default bucket count
+            def seq_queue(**kw):
+                return KaldiMultiDataSeqQueue(data_dir, aux_data, spklist, **kw)
+
+            def random_queue(**kw):
+                return KaldiMultiDataRandomQueue(data_dir, aux_data, spklist, **kw)
         embeddings, labels_out = None, None
         if output_embeddings:
-            seq = KaldiDataSeqQueue(data_dir, spklist, num_parallel=2,
-                                    batch_size=batch_size, shuffle=False, **lengths).start()
+            seq = seq_queue(num_parallel=2, batch_size=batch_size, shuffle=False,
+                            **lengths).start()
             embs, labs = [], []
             try:
                 while True:
@@ -681,8 +739,8 @@ class Trainer:
                     # boundaries so the grace window is not spent here.
                     if self._should_stop():
                         break
-                    features, labels = seq.fetch()
-                    embs.append(self.embed(torch.from_numpy(features)).cpu().numpy())
+                    features, aux, labels = _split_streams(*seq.fetch())
+                    embs.append(self.embed(features, aux).cpu().numpy())
                     labs.append(labels)
             except DataOutOfRange:
                 pass
@@ -692,12 +750,12 @@ class Trainer:
             labels_out = np.concatenate(labs, 0) if labs else np.zeros((0,), np.int32)
 
         if batch_type == "softmax":
-            loader = KaldiDataSeqQueue(data_dir, spklist, num_parallel=2,
-                                       batch_size=batch_size, shuffle=True, **lengths).start()
+            loader = seq_queue(num_parallel=2, batch_size=batch_size, shuffle=True,
+                               **lengths).start()
         else:
             # speaker-major random batches (trainer.py:1395-1415)
-            loader = KaldiDataRandomQueue(
-                data_dir, spklist, num_parallel=2,
+            loader = random_queue(
+                num_parallel=2,
                 num_speakers=int(cfg["num_valid_speakers_per_batch"]),
                 num_segments=int(cfg["num_valid_segments_per_speaker"]),
                 min_len=lengths["min_len"], max_len=lengths["max_len"]).start()
@@ -707,10 +765,9 @@ class Trainer:
             for _ in range(int(cfg.get("valid_max_iterations", 100))):
                 if self._should_stop():
                     break
-                features, labels = loader.fetch()
+                features, aux, labels = _split_streams(*loader.fetch())
                 b = features.shape[0]
-                loss = self.valid_loss(torch.from_numpy(features), torch.from_numpy(labels),
-                                       torch.ones(b))
+                loss = self.valid_loss(features, torch.from_numpy(labels), torch.ones(b), aux)
                 total += float(loss) * b
                 count += b
         except DataOutOfRange:

@@ -4,6 +4,10 @@
 Usage, from the root of the repository:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mt-step-spread
+
+The second form runs only what the multitask step check's bounds are set
+from (``mt_step_spread``) and checks nothing.
 
 Phases, each of which raises on failure:
 
@@ -149,7 +153,24 @@ Phases, each of which raises on failure:
    time; every CLI's kernel launches and native reader counts at its exit
    (``cm_dequantize`` must launch in ``cli.train``, no CLI may fall back to
    numpy); both score files and their EERs; the path's shapes replayed, as
-   in 7.
+   in 7;
+26. the multitask recipe: ``tf_kaldi_speaker_tpu_torch/recipes/fisher/
+   v3_multitask/run.sh`` stages 2-5 from 25's stage-1 output (the same
+   MFCC and VAD options), with a synthetic Kaldi alignment dir (a 2001-pdf
+   transition model written by the port, gzipped transition-id alignments
+   frame-aligned with the MFCC) for the native ``ali_to_pdf``; the shipped
+   ``mt_softmax.json`` at full width (64 speakers of 200-400 frames + 11 + 11
+   of context, 10 phone frames a row) cut to 1 epoch of 16 steps in groups
+   of 8, 2 validation batches and 4 loader threads, the validation split
+   cut on a patched copy; every CLI's kernel launches and native reader
+   counts at its exit (no kernel may launch: the JAX multitask path pools
+   with the two-pass moments and reads floats; ``cli.train_mt`` reads
+   natively with no numpy fallback); finite losses, both egs counts, the
+   x-vectors, phone posteriors and log-likelihoods of one column a pdf;
+   each stage's time; a profiler pass over 8 float32 steps; a float32 step,
+   ``extract_mt`` and ``compute_loglike`` on the card against the CPU, each
+   with a TF32-on and a bf16 control read against its bound (the step's
+   loss, embeddings and updates).
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -3420,32 +3441,12 @@ def run_fisher_recipe(torch, root, device="cuda"):
     """Phase 25: the port's Fisher run.sh, stages 1-6 one at a time, on
     the card. Returns the path's launches and shapes and a summary."""
     t_phase = time.perf_counter()
-    d = os.path.join(root, "fisher")
-    os.makedirs(d)
-    data, seconds = write_fisher_tree(d)
-    runner = os.path.join(d, "launch_runner.py")
-    with open(runner, "w") as f:
-        f.write(LAUNCH_RUNNER)
-    with open(FISHER_SCRIPT) as f:
-        script = f.read()
-    if 'py="python -m"' not in script:
-        raise AssertionError("the Fisher run.sh no longer sets py")
-    patched = os.path.join(d, "run.sh")
-    with open(patched, "w") as f:
-        f.write(script.replace('py="python -m"', 'py="%s %s"' % (sys.executable, runner)))
-    with open(FISHER_CONF) as f:
-        cfg_path = write_json(os.path.join(d, "fisher.json"), dict(json.load(f), **FISHER_CUTS))
+    d, patched, env, seconds = setup_fisher_recipe(root, device)
     print("fisher recipe (%s): the port's run.sh, config cuts %s, variables %s; corpus %d + %d "
           "speakers, %.1f s of 8 kHz audio, written in %.2f s"
           % (CARD, FISHER_CUTS, FISHER_ENV_CUTS, FISHER_CORPUS["background"],
              FISHER_CORPUS["eval_speakers"], seconds, time.perf_counter() - t_phase))
-    exp = os.path.join(d, "exp")
-    launch_log = os.path.join(d, "launches.jsonl")
-    env = dict(os.environ, data_root=data, exp=exp, device=device, config=cfg_path,
-               model=os.path.join(exp, "xvector_fisher"), TFKS_LAUNCH_LOG=launch_log,
-               **FISHER_ENV_CUTS)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    env.pop("TFKS_DISABLE_NATIVE", None)
+    exp, launch_log = env["exp"], env["TFKS_LAUNCH_LOG"]
     stage_s, logs = run_stages(patched, env, range(1, 7), d)
     for way in ("plda", "cosine"):
         path = os.path.join(exp, "scores_%s.txt" % way)
@@ -3476,6 +3477,522 @@ def run_fisher_recipe(torch, root, device="cuda"):
     return dict(launches), shapes, summary
 
 
+def setup_fisher_recipe(root, device="cuda"):
+    """The Fisher phase's corpus, its patched run.sh and the stages'
+    environment under ``root``/fisher: (dir, script, env, seconds of
+    audio)."""
+    d = os.path.join(root, "fisher")
+    os.makedirs(d)
+    data, seconds = write_fisher_tree(d)
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    with open(FISHER_SCRIPT) as f:
+        script = f.read()
+    if 'py="python -m"' not in script:
+        raise AssertionError("the Fisher run.sh no longer sets py")
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(script.replace('py="python -m"', 'py="%s %s"' % (sys.executable, runner)))
+    with open(FISHER_CONF) as f:
+        cfg_path = write_json(os.path.join(d, "fisher.json"), dict(json.load(f), **FISHER_CUTS))
+    exp = os.path.join(d, "exp")
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=exp, device=device, config=cfg_path,
+               model=os.path.join(exp, "xvector_fisher"), TFKS_LAUNCH_LOG=launch_log,
+               **FISHER_ENV_CUTS)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TFKS_DISABLE_NATIVE", None)
+    return d, patched, env, seconds
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the multitask recipe (recipes/fisher/v3_multitask through the port)
+# ---------------------------------------------------------------------------
+MT_SCRIPT = os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "fisher",
+                         "v3_multitask", "run.sh")
+MT_CONF = os.path.join(ROOT, "recipes", "fisher", "v3_multitask", "nnet_conf",
+                       "mt_softmax.json")
+# the shipped config at full width, cut in epochs, steps, validation
+# batches and loader threads (8 in the config; 4 here, as the zoo phase)
+MT_CUTS = dict(num_epochs=1, num_steps_per_epoch=16, valid_max_iterations=2,
+               num_parallel_datasets=4)
+# stage 2's validation split, cut on a patched copy (80 speakers)
+MT_SCRIPT_CUTS = (("--valid-speakers 100 --valid-utts 4", "--valid-speakers 8 --valid-utts 2"),)
+# the synthetic tri5a model: 667 phones of 3 states, 2001 pdfs (an
+# assumption: the repo holds no Fisher tree; Kaldi's Fisher tri5a trees
+# have some thousands of pdfs)
+MT_PHONES = 667
+MT_EXTRACT_CHECK = 4  # utterances held against a CPU predict
+# card against CPU, float32 (TF32 off) from the trained state, each with a
+# TF32-on and a bf16 control read against the same bound: the step's loss
+# gap (MT_LOSS_GAP), the 1 - cosine of the step's speaker and phone
+# embedding rows (MT_FORWARD_COSINE), its updates' 1 - cosine as the median
+# over the parameters (MT_UPDATE_COSINE) and the largest of one parameter
+# (MT_PARAM_COSINE); the x-vectors' 1 - cosine (EMB_MIN_COSINE) and the
+# log-likelihoods' max |gap| over their spread (MT_LOGLIKE_GAP). Each
+# bound sits between the sound check's largest reading on an H100 and the
+# least reading of the controls it is to catch; ``--mt-step-spread`` reads
+# the step's four over 8 trained states x 3 batches, and PERF.md section 6
+# records them. The forward readings are continuous in the inputs and
+# catch TF32; the gradient's are not: a ReLU input that lands on the
+# other side of zero on the card moves the gradient by a jump, so one
+# parameter's update reads 1 - cosine from 1e-8 to 2.4e-5 across trained
+# states of a sound card (mostly the phone branch's BatchNorm scales and
+# offsets, whose updates are sums that cancel), and the update bounds sit
+# below bf16 only.
+MT_LOSS_GAP = 5e-6
+MT_FORWARD_COSINE = 1e-9
+MT_UPDATE_COSINE = 1e-5
+MT_PARAM_COSINE = 5e-4
+MT_LOGLIKE_GAP = 1e-5
+MT_CONTROLS = (("tf32", "float32", True), ("bf16", "bfloat16", False))
+# (reading of read_mt_step, what it is, bound)
+MT_STEP_BOUNDS = (
+    ("loss_gap", "the weighted loss's relative gap", MT_LOSS_GAP),
+    ("forward_one_minus_cosine", "the embeddings' 1 - min row cosine", MT_FORWARD_COSINE),
+    ("update_one_minus_cosine", "the updates' median 1 - cosine", MT_UPDATE_COSINE),
+    ("param_one_minus_cosine", "the largest 1 - cosine of one parameter's update",
+     MT_PARAM_COSINE),
+)
+
+
+def write_mt_tree(root, mfcc_dir):
+    """$data_root/fisher/mfcc from the Fisher phase's stage-1 output of the
+    same options (its text files, its arks in place), and a synthetic Kaldi
+    alignment dir frame-aligned with it; returns (data root, alignment dir,
+    utt2num_frames)."""
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import write_kaldi_alignments
+
+    data = os.path.join(root, "data")
+    mfcc = os.path.join(data, "fisher", "mfcc")
+    os.makedirs(mfcc)
+    for name in ("feats.scp", "vad.scp", "utt2num_frames", "utt2spk", "spk2utt"):
+        shutil.copyfile(os.path.join(mfcc_dir, name), os.path.join(mfcc, name))
+    with open(os.path.join(mfcc, "utt2num_frames")) as f:
+        frames = {u: int(n) for u, n in (line.split() for line in f)}
+    ali_src = os.path.join(root, "tri5a_ali")
+    if write_kaldi_alignments(ali_src, frames, MT_PHONES) != 3 * MT_PHONES:
+        raise AssertionError("the synthetic transition model's pdf count")
+    return data, ali_src, frames
+
+
+def _mt_trainer_at(torch, model, device, compute_dtype):
+    """A TrainerMultiTask in ``model``'s state (its last checkpoint)."""
+    from tf_kaldi_speaker_tpu_torch.multitask import TrainerMultiTask
+    from tf_kaldi_speaker_tpu_torch.utils.params import Params
+
+    nnet = os.path.join(model, "nnet")
+    params = Params(os.path.join(nnet, "config.json"))
+    params.dict["compute_dtype"] = compute_dtype
+    dims = {}
+    for name in ("feature_dim", "num_speakers", "num_phones"):
+        with open(os.path.join(nnet, name)) as f:
+            dims[name] = int(f.read())
+    t = TrainerMultiTask(params, nnet, dim=dims["feature_dim"], num_speakers=dims["num_speakers"],
+                         num_phones=dims["num_phones"], device=device)
+    t.build("train")
+    t.load()
+    return t
+
+
+def mt_update_cosines(before, got, want):
+    """1 - cosine of one parameter's update on the card (``got`` -
+    ``before``) and the CPU's (``want`` - ``before``), in float64: the
+    median over the parameters, and (name, reading) of the parameter where
+    it is largest. The biases of the layers that a BatchNorm follows
+    (``conv1``..``dense5``, ``dense6``, ``zs_dense``, the phone branch's
+    and ``zp_dense``) are left out: their gradient is float32 noise around
+    zero."""
+    followed = re.compile(r"^(phn_)?(conv|dense)\d+$|^z[sp]_dense$")
+    readings = {}
+    for path, w in want.items():
+        if path[0] != "params" or (path[-1] == "bias" and followed.match(path[-2])):
+            continue
+        b = before[path].double().ravel()
+        du, dw = got[path].double().ravel() - b, w.double().ravel() - b
+        uw, uu, ww = float(du @ dw), float(du @ du), float(dw @ dw)
+        readings["/".join(path[1:])] = (1.0 - uw / np.sqrt(uu * ww) if uu * ww
+                                        else float(uu != ww))
+    worst = max(readings.items(), key=lambda kv: kv[1])
+    return float(np.median(list(readings.values()))), worst
+
+
+def _mt_batch(train_dir, ali_dir, cfg, seed, group=1):
+    """One loader draw of the config's layout with its phone masks:
+    (features, labels, ali, lengths, masks) host arrays, ``group``
+    batches stacked when group > 1."""
+    from tf_kaldi_speaker_tpu_torch.multitask import KaldiDataRandomQueueV2, make_phone_masks
+
+    q = KaldiDataRandomQueueV2(
+        train_dir, ali_dir, os.path.join(train_dir, "spklist"), cfg["phone_left_context"],
+        cfg["phone_right_context"], num_parallel=1, max_qsize=1,
+        num_speakers=cfg["num_speakers_per_batch"], min_len=cfg["min_segment_len"],
+        max_len=cfg["max_segment_len"], seed=seed, group=group).start()
+    try:
+        feats, _vad, ali, length, labels, resample, _ = q.fetch()
+    finally:
+        q.stop()
+    rng = np.random.RandomState(seed)
+    k = cfg["num_frames_per_utt"]
+    if group == 1:
+        idx = make_phone_masks(length, resample, k, rng)
+    else:
+        idx = np.stack([make_phone_masks(length[g], resample[g], k, rng) for g in range(group)])
+    return feats, labels, ali, length, idx
+
+
+def _mt_step(torch, model, device, dtype, batch, lr, tf32=False):
+    """One ``dtype`` multitask step on ``device`` from the trained state
+    (TF32 on for cuDNN convolutions and matmuls when ``tf32``): the
+    weighted loss, the parameters after it, and the rows of the step's
+    speaker and phone embeddings (``mu_zs`` [B, d] over ``mu_zp_subset``
+    [B*K, d], float64 on the host) that its forward computed."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    t = _mt_trainer_at(torch, model, device, dtype)
+    cfg = t.params.dict
+    rows = []
+    hook = t.network_model.register_forward_hook(lambda module, args, out: rows.extend(
+        out[1][k].detach().double().cpu() for k in ("mu_zs", "mu_zp_subset")))
+    backends = torch.backends
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        m = t.train_step(*(torch.from_numpy(a).to(device) for a in batch), lr)
+        loss = (float(cfg.get("spk_loss_weight", 1.0)) * float(m["spk_loss"])
+                + float(cfg.get("phn_loss_weight", 1.0)) * float(m["phn_loss"]))
+    finally:
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+        hook.remove()
+    return loss, flatten(variables_of(t.network_model)), torch.cat(rows)
+
+
+def rows_one_minus_cosine(got, want):
+    """The largest 1 - cosine of a row of ``got`` and the same row of
+    ``want`` (float64 [N, d] tensors)."""
+    cos = (got * want).sum(1) / (got.norm(dim=1) * want.norm(dim=1))
+    return float(1.0 - cos.min())
+
+
+def read_mt_step(torch, model, train_dir, ali_dir, device="cuda", seed=13):
+    """One float32 multitask step on the card (TF32 off) and the
+    MT_CONTROLS steps, each against the CPU's float32 step, from
+    ``model``'s state on the loader batch drawn with ``seed``: the weighted
+    loss's relative gap, the embedding rows' largest 1 - cosine and the
+    updates' ``mt_update_cosines``. Returns (readings by name, the batch,
+    the CPU's loss)."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+
+    cpu = _mt_trainer_at(torch, model, "cpu", "float32")
+    cfg, lr = cpu.params.dict, float(cpu.params.dict["learning_rate"])
+    batch = _mt_batch(train_dir, ali_dir, cfg, seed)
+    before = flatten(variables_of(cpu.network_model))
+    loss_cpu, want, rows_cpu = _mt_step(torch, model, "cpu", "float32", batch, lr)
+    readings = {}
+    for name, dtype, tf32 in (("sound", "float32", False),) + MT_CONTROLS:
+        loss, got, rows = _mt_step(torch, model, device, dtype, batch, lr, tf32)
+        one_minus, (param, param_one_minus) = mt_update_cosines(before, got, want)
+        readings[name] = dict(loss=loss, loss_gap=abs(loss - loss_cpu) / abs(loss_cpu),
+                              forward_one_minus_cosine=rows_one_minus_cosine(rows, rows_cpu),
+                              update_one_minus_cosine=one_minus, worst_param=param,
+                              param_one_minus_cosine=param_one_minus)
+    return readings, batch, loss_cpu
+
+
+def check_mt_step_against_cpu(torch, model, train_dir, ali_dir, device="cuda"):
+    """One float32 multitask step on the card (TF32 off) against the CPU's
+    from the trained state on one loader batch, each reading of
+    ``read_mt_step`` within its MT_STEP_BOUNDS bound; MT_CONTROLS read
+    against the same CPU step and bounds (a control is caught when any
+    reading passes its bound)."""
+    readings, batch, loss_cpu = read_mt_step(torch, model, train_dir, ali_dir, device)
+    r = readings["sound"]
+    if not np.isfinite(r["loss"]):
+        raise AssertionError("multitask step: card float32 loss %r" % r["loss"])
+    for key, what, bound in MT_STEP_BOUNDS:
+        if not r[key] <= bound:
+            raise AssertionError("multitask step, card float32 vs CPU: %s %.3g > %g%s" % (
+                what, r[key], bound,
+                " (%s)" % r["worst_param"] if key == "param_one_minus_cosine" else ""))
+
+    def show(reading, control):
+        return "; ".join("%s %.3g (%s<= %g%s)" % (
+            what, reading[key], "bound " if control else "", bound,
+            (": caught" if reading[key] > bound else ": NOT caught") if control else "")
+            for key, what, bound in MT_STEP_BOUNDS)
+
+    print("one float32 multitask step %s (pdf labels %s, %d phone frames a row), card (TF32 "
+          "off) vs CPU from the trained state: loss %r vs %r; %s; the largest of one parameter "
+          "at %s ok" % (list(batch[0].shape), list(batch[2].shape), batch[4].shape[1], r["loss"],
+                        loss_cpu, show(r, False), r["worst_param"]))
+    for name in ("tf32", "bf16"):
+        c = readings[name]
+        caught = any(c[key] > bound for key, _, bound in MT_STEP_BOUNDS)
+        print("control %s multitask step vs the CPU's: %s; the step %s" % (
+            name, show(c, True), "caught" if caught else "NOT caught"))
+    return dict(mt_cpu_loss_gap=r["loss_gap"],
+                mt_cpu_forward_one_minus_cosine=r["forward_one_minus_cosine"],
+                mt_cpu_update_one_minus_cosine=r["update_one_minus_cosine"],
+                mt_cpu_param_one_minus_cosine=[r["worst_param"], r["param_one_minus_cosine"]],
+                mt_step_controls={k: v for k, v in readings.items() if k != "sound"})
+
+
+def profile_mt_group(torch, model, train_dir, ali_dir, device="cuda"):
+    """One torch.profiler pass over a group of 8 float32 multitask steps
+    (TF32 off) on a loader group already on the card, after the same 8 as
+    warm-up: the step time, the device's busy and idle share and the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = _mt_trainer_at(torch, model, device, "float32")
+    cfg, lr = t.params.dict, float(t.params.dict["learning_rate"])
+    group = [torch.from_numpy(a).to(device) for a in _mt_batch(train_dir, ali_dir, cfg, 17, 8)]
+
+    def steps():
+        for k in range(8):
+            t.train_step(*(a[k] for a in group), lr)
+
+    steps()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, n_events, by_name = device_busy(torch, prof)
+    if not n_events:
+        print("profile: no device events in the trace; device idle share not measured")
+        return {}
+    print("profile (%s), 8 float32 multitask steps %s on the card (TF32 off) under "
+          "torch.profiler: wall %.4f s (%.3f ms a step), device busy %.4f s, device idle "
+          "%.1f%%, %d device events" % (CARD, list(group[0].shape[1:]), wall, 1e3 * wall / 8,
+                                        busy_s, 100 * (1 - busy_s / wall), n_events))
+    print_top(by_name, busy_s)
+    return dict(mt_profile_step_ms=1e3 * wall / 8, mt_device_idle=1 - busy_s / wall)
+
+
+def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
+    """extract_mt and compute_loglike in this process on the card (TF32
+    off) over ``scp``, held against a float32 CPU predict of the same
+    checkpoint on the first MT_EXTRACT_CHECK utterances: 1 - cosine of the
+    x-vectors <= 1 - EMB_MIN_COSINE, and the log-likelihoods' max |gap| over
+    the CPU matrix's spread <= MT_LOGLIKE_GAP. The controls (a card predict
+    with TF32 on, the checkpoint in bf16) are read against the same CPU
+    outputs and bounds. Returns the readings and the two runs' launches."""
+    from tf_kaldi_speaker_tpu_torch.cli import compute_loglike, extract_mt
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_ark, read_mat_scp, read_vec_flt_ark
+
+    out = os.path.dirname(prior_path)
+    xv_ark, ll_ark = os.path.join(out, "check_xv.ark"), os.path.join(out, "check_ll.ark")
+    runs = [drive(torch, extract_mt.main, ["--device", device, model, "scp:" + scp,
+                                            "ark:" + xv_ark]),
+            drive(torch, compute_loglike.main, ["--device", device, "--prior", prior_path, model,
+                                                "scp:" + scp, "ark:" + ll_ark])]
+    for r, name in zip(runs, ("extract_mt", "compute_loglike")):
+        if r["rc"] != 0:
+            raise RuntimeError("%s exited %d" % (name, r["rc"]))
+    xv, ll = dict(read_vec_flt_ark(xv_ark)), dict(read_mat_ark(ll_ark))
+    with open(prior_path) as f:
+        log_prior = np.log(np.array(f.read().strip("[] \n").split(), np.float64))[None, :]
+    cpu = _mt_trainer_at(torch, model, "cpu", "float32")
+    card = _mt_trainer_at(torch, model, device, "float32")
+    # the checkpoint with every parameter and buffer in bf16
+    bf16 = _mt_trainer_at(torch, model, device, "float32").network_model.to(
+        torch.bfloat16).eval()
+    worst = {k: dict(xv=0.0, ll=0.0) for k in ("sound", "tf32", "bf16")}
+    backends = torch.backends
+    for _, (key, feats) in zip(range(MT_EXTRACT_CHECK), read_mat_scp(scp)):
+        want_xv = cpu.predict_speaker(feats)
+        want_ll = cpu.predict_phone(feats) - log_prior
+        spread = float(want_ll.max() - want_ll.min())
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = (card.predict_speaker(feats), card.predict_phone(feats) - log_prior)
+        finally:
+            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+        x = card._expand(feats[None]).to(torch.bfloat16)
+        with torch.inference_mode():
+            lengths = torch.full((1,), feats.shape[0], dtype=torch.int32, device=card.device)
+            b_xv = bf16.predict_speaker(x, lengths).float().cpu().numpy()[0]
+            b_ll = bf16.predict_phone(x).float().cpu().numpy()[0] - log_prior
+        for name, (e, m) in (("sound", (xv[key], ll[key])), ("tf32", tf32), ("bf16", (b_xv, b_ll))):
+            worst[name]["xv"] = max(worst[name]["xv"], 1.0 - cosine(e, want_xv))
+            worst[name]["ll"] = max(worst[name]["ll"],
+                                    float(np.max(np.abs(m - want_ll))) / spread)
+    if not worst["sound"]["xv"] <= 1.0 - EMB_MIN_COSINE:
+        raise AssertionError("extract_mt vs a CPU predict: 1 - min cosine %.3g > %.3g"
+                             % (worst["sound"]["xv"], 1.0 - EMB_MIN_COSINE))
+    if not worst["sound"]["ll"] <= MT_LOGLIKE_GAP:
+        raise AssertionError("compute_loglike vs a CPU predict: max |gap| / spread %.3g > %g"
+                             % (worst["sound"]["ll"], MT_LOGLIKE_GAP))
+    print("extract_mt and compute_loglike on the card (TF32 off, %d utterances, %.3f and %.3f "
+          "s in this process) vs a CPU predict of the first %d: x-vectors 1 - min cosine %.3g "
+          "(<= %.3g), log-likelihoods max |gap| over their spread %.3g (<= %g) ok"
+          % (len(xv), runs[0]["wall"], runs[1]["wall"], MT_EXTRACT_CHECK, worst["sound"]["xv"],
+             1.0 - EMB_MIN_COSINE, worst["sound"]["ll"], MT_LOGLIKE_GAP))
+    for name in ("tf32", "bf16"):
+        w = worst[name]
+        print("control %s vs the CPU predict: x-vectors 1 - min cosine %.3g (bound <= %.3g: %s); "
+              "log-likelihoods max |gap| / spread %.3g (bound <= %g: %s)"
+              % (name, w["xv"], 1.0 - EMB_MIN_COSINE,
+                 "caught" if w["xv"] > 1.0 - EMB_MIN_COSINE else "NOT caught",
+                 w["ll"], MT_LOGLIKE_GAP, "caught" if w["ll"] > MT_LOGLIKE_GAP else "NOT caught"))
+    return worst, runs
+
+
+def check_mt_recipe_outputs(exp, data, frames, logs, cfg):
+    """What stages 3-5 wrote: a finite progress line and validation line,
+    both egs counts, the x-vectors of every kept training utterance, and
+    phone posteriors and log-likelihoods of every validation utterance with
+    one column a pdf."""
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_ark, read_vec_flt_scp
+
+    num_pdfs = 3 * MT_PHONES
+    model = os.path.join(exp, "mt_xvector")
+    losses = [(float(a), float(b)) for a, b in re.findall(r"step \d+: spk ([-0-9.naninf]+) "
+                                                          r"phn ([-0-9.naninf]+)", logs[3])]
+    epoch = re.findall(r"epoch 1: spk ([-0-9.naninf]+) phn ([-0-9.naninf]+)", logs[3])
+    if not losses or not epoch or not np.all(np.isfinite(losses + [tuple(map(float, epoch[0]))])):
+        raise AssertionError("train_mt: progress losses %s, validation %s" % (losses, epoch))
+    for name, n in (("speaker_egs", None), ("phone_egs", num_pdfs)):
+        with open(os.path.join(model, name)) as f:
+            counts = [int(line.split()[1]) for line in f]
+        if (n is not None and len(counts) != n) or not sum(counts):
+            raise AssertionError("%s: %d classes, %d egs" % (name, len(counts), sum(counts)))
+    with open(os.path.join(data, "split", "train", "feats.scp")) as f:
+        train_utts = [line.split()[0] for line in f]
+    with open(os.path.join(data, "split", "valid", "feats.scp")) as f:
+        valid_utts = [line.split()[0] for line in f]
+    xv = dict(read_vec_flt_scp(os.path.join(exp, "xvectors_train.scp")))
+    if sorted(xv) != sorted(train_utts) or not all(
+            v.shape == (cfg["speaker_dim"],) and np.isfinite(v).all() for v in xv.values()):
+        raise AssertionError("xvectors_train.scp: %d of %d utterances" % (len(xv),
+                                                                          len(train_utts)))
+    for name in ("phone_post.ark", "loglike.ark"):
+        mats = dict(read_mat_ark(os.path.join(exp, name)))
+        if sorted(mats) != sorted(valid_utts) or not all(
+                m.shape == (frames[k], num_pdfs) and np.isfinite(m).all()
+                for k, m in mats.items()):
+            raise AssertionError("%s: %d matrices of %s" % (name, len(mats), sorted(
+                {m.shape for m in mats.values()})))
+    return dict(progress_losses=losses, valid_losses=[float(x) for x in epoch[0]],
+                train_xvectors=len(xv), valid_matrices=len(valid_utts))
+
+
+def run_multitask_recipe(torch, root, mfcc_dir, device="cuda"):
+    """Phase 26: the port's v3 multitask run.sh, stages 2-5 one at a time,
+    on the card, from the Fisher phase's stage-1 output. Returns the path's
+    launches and a summary."""
+    t_phase = time.perf_counter()
+    d, patched, env, frames, cfg = setup_multitask_recipe(root, mfcc_dir, MT_CUTS, device)
+    print("multitask recipe (%s): the port's v3 run.sh stages 2-5 on the Fisher phase's "
+          "stage-1 output (%d utterances, %d-%d frames), config cuts %s, script %s; a synthetic "
+          "tri5a model of %d pdfs, written in %.2f s"
+          % (CARD, len(frames), min(frames.values()), max(frames.values()), MT_CUTS,
+             ["%s -> %s" % c for c in MT_SCRIPT_CUTS], 3 * MT_PHONES,
+             time.perf_counter() - t_phase))
+    data, exp, launch_log = env["data_root"], env["exp"], env["TFKS_LAUNCH_LOG"]
+    stage_s, logs = run_stages(patched, env, range(2, 6), d)
+    outputs = check_mt_recipe_outputs(exp, data, frames, logs, cfg)
+    launches, _, by_module, native = read_launch_log(launch_log)
+    check_no_fallback("multitask recipe, cli.train_mt", dict(native["train_mt"]), "read_submat")
+    fallbacks = {m: c["fallback"] for m, c in native.items() if c.get("fallback")}
+    if fallbacks:
+        raise AssertionError("multitask recipe: numpy fallbacks by CLI %s" % fallbacks)
+    # the JAX multitask path pools with the two-pass moments and reads floats
+    if sum(launches.values()):
+        raise AssertionError("the multitask path launched %s" % dict(launches))
+    print("multitask recipe kernel launches (every process): %s; native reader counts by CLI: "
+          "%s" % (json.dumps(dict(launches)), json.dumps({m: dict(c) for m, c in native.items()
+                                                          if sum(c.values())})))
+    model = os.path.join(exp, "mt_xvector")
+    split = os.path.join(data, "split")
+    ali_dir = os.path.join(data, "fisher_ali")
+    profile = profile_mt_group(torch, model, os.path.join(split, "train"), ali_dir, device)
+    gaps = check_mt_step_against_cpu(torch, model, os.path.join(split, "train"), ali_dir, device)
+    worst, runs = check_mt_outputs_against_cpu(
+        torch, model, os.path.join(split, "valid", "feats.scp"), os.path.join(exp, "prior.vec"),
+        device)
+    for r in runs:
+        for name, count in r["launches"].items():
+            launches[name] += count
+    print("multitask recipe stage times on the card (%s; each stage one bash run, every CLI its "
+          "own interpreter): %s s; progress losses %s, validation spk/phn %s; the phase %.2f s"
+          % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, outputs["progress_losses"],
+             outputs["valid_losses"], time.perf_counter() - t_phase))
+    summary = dict(profile, mt_stage_s=stage_s, mt_outputs=outputs,
+                   mt_train_native=dict(native["train_mt"]),
+                   mt_extract_one_minus_cosine=worst["sound"]["xv"],
+                   mt_loglike_gap=worst["sound"]["ll"],
+                   mt_output_controls={k: v for k, v in worst.items() if k != "sound"}, **gaps)
+    return dict(launches), summary
+
+
+def setup_multitask_recipe(root, mfcc_dir, cuts, device="cuda"):
+    """Phase 26's tree from ``mfcc_dir``, its patched run.sh, the config
+    with ``cuts`` and the stages' environment under ``root``/multitask:
+    (dir, script, env, utt2num_frames, config)."""
+    d = os.path.join(root, "multitask")
+    os.makedirs(d)
+    data, ali_src, frames = write_mt_tree(d, mfcc_dir)
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    with open(MT_SCRIPT) as f:
+        script = f.read()
+    for old, new in MT_SCRIPT_CUTS + (('py="python -m"', 'py="%s %s"' % (sys.executable,
+                                                                          runner)),):
+        if old not in script:
+            raise AssertionError("the multitask run.sh no longer holds %r" % old)
+        script = script.replace(old, new)
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(script)
+    with open(MT_CONF) as f:
+        cfg = dict(json.load(f), **cuts)
+    cfg_path = write_json(os.path.join(d, "mt.json"), cfg)
+    exp = os.path.join(d, "exp")
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=exp, device=device, config=cfg_path,
+               kaldi_ali_src=ali_src, TFKS_LAUNCH_LOG=launch_log)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TFKS_DISABLE_NATIVE", None)
+    return d, patched, env, frames, cfg
+
+
+def mt_step_spread(torch, root, mfcc_dir, seeds=tuple(range(8)), batches=(13, 14, 15),
+                   device="cuda"):
+    """``python3 chip_smoke.py --mt-step-spread``: the readings that
+    check_mt_step_against_cpu's bounds sit between. For each config seed
+    in ``seeds``, phase 26's stages 2-3 from ``mfcc_dir`` (the same cuts),
+    then ``read_mt_step`` on the loader batches of ``batches``: one line a
+    reading, then the largest sound reading and the least of each control
+    for each bound. Checks nothing; returns the readings."""
+    rows = []
+    for seed in seeds:
+        d, patched, env, _, _ = setup_multitask_recipe(
+            os.path.join(root, "seed%d" % seed), mfcc_dir, dict(MT_CUTS, seed=seed), device)
+        run_stages(patched, env, range(2, 4), d)
+        model = os.path.join(env["exp"], "mt_xvector")
+        train_dir = os.path.join(env["data_root"], "split", "train")
+        ali_dir = os.path.join(env["data_root"], "fisher_ali")
+        for batch in batches:
+            readings, _, _ = read_mt_step(torch, model, train_dir, ali_dir, device, batch)
+            rows.append(readings)
+            print("mt step spread (%s), config seed %d, batch %d: %s" % (
+                CARD, seed, batch, "; ".join(
+                    "%s loss %.3g embeddings %.3g updates %.3g, %s %.3g" % (
+                        name, r["loss_gap"], r["forward_one_minus_cosine"],
+                        r["update_one_minus_cosine"], r["worst_param"],
+                        r["param_one_minus_cosine"]) for name, r in readings.items())))
+    for key, _, bound in MT_STEP_BOUNDS:
+        print("mt step spread (%s), %d readings, %s: sound at most %.3g, TF32 at least %.3g, "
+              "bf16 at least %.3g; bound %g" % (
+                  CARD, len(rows), key, max(r["sound"][key] for r in rows),
+                  min(r["tf32"][key] for r in rows), min(r["bf16"][key] for r in rows), bound))
+    return rows
+
+
 def main():
     import logging
 
@@ -3483,6 +4000,9 @@ def main():
 
     global CARD
     t_start = time.perf_counter()
+    spread = sys.argv[1:] == ["--mt-step-spread"]
+    if sys.argv[1:] and not spread:
+        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs the port on a GPU")
@@ -3494,6 +4014,15 @@ def main():
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spread:
+        root = os.path.join(WORK_DIR, "mt_spread")
+        shutil.rmtree(root, ignore_errors=True)
+        d, patched, env, _ = setup_fisher_recipe(root)
+        run_stages(patched, env, [1], d)
+        mt_step_spread(torch, root, os.path.join(env["data_root"], "train_background", "mfcc"))
+        return
 
     from tf_kaldi_speaker_tpu_torch.ops import _build
 
@@ -3506,8 +4035,6 @@ def main():
         if any(w in line for w in ("Compiling entry", "stack frame", "registers")):
             print("  " + line.strip())
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     print("torch.backends.cudnn.allow_tf32=%s torch.backends.cuda.matmul.allow_tf32=%s"
           % (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
     flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
@@ -3581,6 +4108,9 @@ def main():
                prefix="fisher_mix_")
     del flush
     print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
+    paths["mt"], mt_summary = run_multitask_recipe(
+        torch, WORK_DIR, os.path.join(WORK_DIR, "fisher", "data", "train_background", "mfcc"))
+    print("multitask recipe summary (%s): %s" % (CARD, json.dumps(mt_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

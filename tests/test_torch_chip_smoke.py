@@ -65,6 +65,18 @@ def test_exits_nonzero_without_cuda(where, tmp_path):
     assert '"ok"' not in proc.stdout
 
 
+@pytest.mark.parametrize("args, said", [(["--mt-step-spread"], None),
+                                         (["--bogus"], "usage: python3 chip_smoke.py")])
+def test_arguments_without_cuda(args, said):
+    """The spread form needs the card as the plain form does; any other
+    argument is refused with the usage line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, SCRIPT] + args, cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert said is None or said in proc.stderr
+
+
 def test_pooling_backward_operations():
     """A subtract, a multiply-add and a multiply per element of x: four
     operations, far below the bytes at any shape."""
@@ -604,3 +616,142 @@ def test_native_and_multi_input_phases_on_cpu(tmp_path, monkeypatch, caplog):
     for reads in summary["cm_reads_ms"].values():
         assert set(reads) == {b for b, _ in cs.CM_READS}
     assert asked[2:] == [["cm_dequantize"]] * 2
+
+
+def test_multitask_phase_is_wired_and_configured():
+    """Phase 26 runs after the Fisher phase from its stage-1 output, adds
+    its path to the kernels line as "mt", and the docstring lists it; the
+    config is the shipped mt_softmax.json cut in epochs, steps, validation
+    batches and loader threads only, the script in its validation split
+    only, with 2001 pdfs."""
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1]
+    at = [main_src.index(c) for c in ("run_fisher_recipe(", "run_multitask_recipe(",
+                                      "print(json.dumps({\"kernels\"")]
+    assert at == sorted(at)
+    assert 'paths["mt"]' in main_src and "\n26. " in cs.__doc__
+    assert cs.MT_CUTS == dict(num_epochs=1, num_steps_per_epoch=16, valid_max_iterations=2,
+                              num_parallel_datasets=4)
+    with open(cs.MT_CONF) as f:
+        shipped = json.load(f)
+    assert (shipped["num_speakers_per_batch"], shipped["min_segment_len"],
+            shipped["max_segment_len"], shipped["num_frames_per_utt"],
+            shipped["phone_left_context"], shipped["phone_right_context"]) == (
+        64, 200, 400, 10, 11, 11)
+    assert "compute_dtype" not in shipped and 3 * cs.MT_PHONES >= 2000
+    with open(cs.MT_SCRIPT) as f:
+        script = f.read()
+    for old, _ in cs.MT_SCRIPT_CUTS:
+        assert old in script
+    assert 'py="python -m"' in script
+
+
+def test_multitask_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 26 end to end at a small width with --device cpu: stages 2-5
+    of the v3 run.sh through the launch runner from a stage-1-like MFCC
+    dir, the outputs' checks, no kernel launch and no numpy fallback, and
+    the card-versus-CPU checks (0 gaps on the CPU, the bf16 controls
+    non-zero)."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    made = make_fake_data_dir(str(tmp_path / "mfcc"), num_speakers=10, utts_per_speaker=5,
+                              dim=23, min_len=210, max_len=260, seed=4, with_vad_ali=True,
+                              num_phones=3)
+    tiny = dict(json.load(open(cs.MT_CONF)), tdnn_layer_size=16, num_nodes_pooling_layer=24,
+                speaker_dim=16, phone_dim=16, phone_layer_size=[16] * 5,
+                num_speakers_per_batch=4, min_segment_len=64, max_segment_len=96)
+    conf = tmp_path / "tiny.json"
+    conf.write_text(json.dumps(tiny))
+    monkeypatch.setattr(cs, "MT_CONF", str(conf))
+    monkeypatch.setattr(cs, "MT_PHONES", 5)
+    monkeypatch.setattr(cs, "MT_CUTS", dict(cs.MT_CUTS, num_steps_per_epoch=2,
+                                            num_parallel_datasets=2))
+    monkeypatch.setattr(cs, "MT_EXTRACT_CHECK", 2)
+    launches, summary = cs.run_multitask_recipe(torch, str(tmp_path), made["data"],
+                                                device="cpu")
+    assert not sum(launches.values())
+    assert set(summary["mt_stage_s"]) == {2, 3, 4, 5}
+    assert summary["mt_cpu_loss_gap"] == 0 and summary["mt_cpu_update_one_minus_cosine"] < 1e-12
+    assert summary["mt_cpu_param_one_minus_cosine"][1] < 1e-12
+    # the arks hold float32 log-likelihoods; the reference is float64
+    assert summary["mt_extract_one_minus_cosine"] < 1e-12 and summary["mt_loglike_gap"] < 1e-7
+    assert set(summary["mt_step_controls"]) == set(summary["mt_output_controls"]) == {"tf32",
+                                                                                      "bf16"}
+    assert summary["mt_step_controls"]["bf16"]["loss_gap"] > 0
+    assert summary["mt_output_controls"]["bf16"]["xv"] > 0
+    assert summary["mt_outputs"]["train_xvectors"] == 50 - 16
+    assert summary["mt_train_native"]["read_submat"] > 0
+
+
+def test_mt_update_cosines():
+    """The median over the parameters and the worst one by name; the
+    biases of the layers a BatchNorm follows are left out; an update that
+    is zero on one side only reads 1."""
+    import torch
+
+    cs = _chip_smoke()
+    rng = np.random.RandomState(0)
+    names = [("params", "conv1", "kernel"), ("params", "conv1", "bias"),
+             ("params", "bn1", "scale"), ("params", "phn_bn3", "scale"),
+             ("params", "spk_softmax", "output", "kernel"), ("batch_stats", "bn1", "mean")]
+    before = {p: torch.from_numpy(rng.randn(64).astype(np.float32)) for p in names}
+    want = {p: v + torch.from_numpy(rng.randn(64).astype(np.float32)) for p, v in before.items()}
+    median, (param, one) = cs.mt_update_cosines(before, dict(want), want)
+    assert median == pytest.approx(0.0, abs=1e-15) and one == pytest.approx(0.0, abs=1e-15)
+    for noise in [("params", "conv1", "bias"), ("batch_stats", "bn1", "mean")]:
+        median, (param, one) = cs.mt_update_cosines(before, {**want, noise: want[noise] * 3},
+                                                    want)
+        assert one == pytest.approx(0.0, abs=1e-15)
+    # one parameter off: the worst, and the median of four stays small
+    off = names[3]
+    got = {**want, off: before[off] + 0.1 * (want[off] - before[off])
+           + 0.1 * torch.from_numpy(rng.randn(64).astype(np.float32))}
+    median, (param, one) = cs.mt_update_cosines(before, got, want)
+    assert param == "phn_bn3/scale" and one > 0.01 and median < 1e-12
+    # half of them off: the median moves
+    got = {**got, names[2]: got[off] - before[off] + before[names[2]]}
+    assert cs.mt_update_cosines(before, got, want)[0] > 1e-3
+    got = {**want, names[4]: before[names[4]]}
+    assert cs.mt_update_cosines(before, got, want)[1] == ("spk_softmax/output/kernel", 1.0)
+
+
+def test_mt_step_spread_on_cpu(tmp_path, monkeypatch, capsys):
+    """``--mt-step-spread``'s reader at a small width with --device cpu:
+    stages 2-3 per config seed, one reading a batch (the CPU against
+    itself: 0; the bf16 control not), and the summary line of each
+    bound."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    made = make_fake_data_dir(str(tmp_path / "mfcc"), num_speakers=10, utts_per_speaker=5,
+                              dim=23, min_len=210, max_len=260, seed=4, with_vad_ali=True,
+                              num_phones=3)
+    tiny = dict(json.load(open(cs.MT_CONF)), tdnn_layer_size=16, num_nodes_pooling_layer=24,
+                speaker_dim=16, phone_dim=16, phone_layer_size=[16] * 5,
+                num_speakers_per_batch=4, min_segment_len=64, max_segment_len=96)
+    conf = tmp_path / "tiny.json"
+    conf.write_text(json.dumps(tiny))
+    monkeypatch.setattr(cs, "MT_CONF", str(conf))
+    monkeypatch.setattr(cs, "MT_PHONES", 5)
+    monkeypatch.setattr(cs, "MT_CUTS", dict(cs.MT_CUTS, num_steps_per_epoch=2,
+                                            num_parallel_datasets=2))
+    rows = cs.mt_step_spread(torch, str(tmp_path / "spread"), made["data"], seeds=(0, 1),
+                             batches=(13,), device="cpu")
+    assert len(rows) == 2
+    for r in rows:
+        assert set(r) == {"sound", "tf32", "bf16"}
+        assert r["sound"]["loss_gap"] == 0 and r["sound"]["update_one_minus_cosine"] < 1e-12
+        assert r["sound"]["forward_one_minus_cosine"] < 1e-12
+        assert r["bf16"]["update_one_minus_cosine"] > 0 and r["bf16"]["worst_param"]
+        assert r["bf16"]["forward_one_minus_cosine"] > 1e-6
+    # the two trained states differ
+    assert rows[0]["bf16"]["loss"] != rows[1]["bf16"]["loss"]
+    out = capsys.readouterr().out
+    assert out.count("mt step spread") == 2 + 4 and "2 readings, param_one_minus_cosine" in out

@@ -511,3 +511,57 @@ def test_exact_long_on_card_matches_cpu(cuda, tmp_path):
         out[device] = ex.embed_long_exact(feat), whole
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(out["cuda"][0], out["cuda"][1], rtol=5e-3, atol=5e-4)
+
+
+MT_TINY = dict(seed=0, tdnn_layer_size=16, num_nodes_pooling_layer=24, speaker_dim=16,
+               phone_dim=12, embedding_node="zs_mu_dense", spk_loss_type="softmax",
+               phn_loss_type="softmax", phn_loss_weight=0.2, num_shared_layers=2,
+               phone_kernel_size=[5, 5, 7, 1, 3], phone_layer_size=[16] * 5,
+               phone_dilation_size=[1, 1, 1, 1, 4], phone_left_context=11,
+               phone_right_context=11, num_frames_per_utt=5, learning_rate=0.05,
+               optimizer="momentum", momentum=0.9, weight_l2_regularizer=1e-4,
+               num_steps_per_epoch=4, steps_per_dispatch=2, num_parallel_datasets=2,
+               num_speakers_per_batch=4, min_segment_len=64, max_segment_len=96,
+               valid_max_iterations=2, show_training_progress=2)
+
+
+def test_multitask_on_card_matches_cpu(cuda, tmp_path):
+    """The multitask trainer on the card: one float32 epoch of 2 groups of
+    2 steps against the same epoch on the CPU (the group losses and the
+    parameters within PR 8's training tolerance), then valid() and both
+    predicts; nothing on the path launches a kernel of the port (the JAX
+    multitask path pools with the two-pass moments and reads floats)."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
+    from tf_kaldi_speaker_tpu_torch.multitask import TrainerMultiTask
+    from tf_kaldi_speaker_tpu_torch.utils.params import ParamsPlain
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    d = make_fake_data_dir(str(tmp_path / "d"), num_speakers=5, utts_per_speaker=4, dim=D,
+                           min_len=120, max_len=200, with_vad_ali=True, num_phones=7)
+    data = (d["data"], d["ali_dir"], d["spklist"])
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        t = TrainerMultiTask(ParamsPlain(**MT_TINY), str(tmp_path / dev / "nnet"), dim=D,
+                             num_speakers=5, num_phones=7, device=dev)
+        t.build("train", D, num_speakers=5, num_phones=7)
+        trainers[dev] = t
+    for fn in (cm_dequantize, masked_stats_pooling, masked_stats_pooling_backward):
+        fn.launches = 0
+    for t in trainers.values():
+        t.train(*data, 0.05)
+    assert sum(fn.launches for fn in (cm_dequantize, masked_stats_pooling,
+                                      masked_stats_pooling_backward)) == 0
+    got = flatten(variables_of(trainers["cuda"].network_model))
+    want = flatten(variables_of(trainers["cpu"].network_model))
+    for path, w in want.items():
+        np.testing.assert_allclose(got[path].numpy(), w.numpy(), rtol=2e-4, atol=5e-5,
+                                   err_msg=str(path))
+    vg, vw = trainers["cuda"].valid(*data), trainers["cpu"].valid(*data)
+    np.testing.assert_allclose(vg[:2], vw[:2], rtol=2e-4)
+    x = np.random.RandomState(0).randn(150, D).astype(np.float32)
+    for t in trainers.values():
+        t.build("predict", D)
+    np.testing.assert_allclose(trainers["cuda"].predict_speaker(x),
+                               trainers["cpu"].predict_speaker(x), rtol=2e-4, atol=5e-5)
+    np.testing.assert_allclose(trainers["cuda"].predict_phone(x),
+                               trainers["cpu"].predict_phone(x), rtol=2e-4, atol=5e-5)

@@ -49,12 +49,24 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 78, mods\n"
+        "assert len(mods) >= 90, mods\n"
         "assert {'tf_kaldi_speaker_tpu_torch.kio.native_decode',\n"
         "        'tf_kaldi_speaker_tpu_torch.train.trainer_mi',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_bnf',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.train_mi',\n"
-        "        'tf_kaldi_speaker_tpu_torch.cli.extract_mi'} <= set(mods), mods\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_mi',\n"
+        "        'tf_kaldi_speaker_tpu_torch.kio.transition_model',\n"
+        "        'tf_kaldi_speaker_tpu_torch.multitask',\n"
+        "        'tf_kaldi_speaker_tpu_torch.multitask.common',\n"
+        "        'tf_kaldi_speaker_tpu_torch.multitask.data_v2',\n"
+        "        'tf_kaldi_speaker_tpu_torch.multitask.model',\n"
+        "        'tf_kaldi_speaker_tpu_torch.multitask.trainer',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.ali_to_pdf',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_mt',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_mt',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_mt_phone',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.compute_loglike',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_mt_lr_learning'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"
@@ -89,12 +101,20 @@ def test_no_source_imports_the_jax_package(path):
     assert not bad, bad
 
 
-@pytest.mark.parametrize("recipe", ["voxceleb", "fisher"])
+RECIPES = {"voxceleb": "voxceleb/v1", "fisher": "fisher/v1",
+           "fisher_v3_multitask": "fisher/v3_multitask"}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
 def test_recipe_copies_call_the_port_only(recipe):
-    with open(os.path.join(PORT, "recipes", recipe, "v1", "run.sh")) as f:
+    """Every line of a recipe copy that names a package calls a port CLI,
+    or, in an inline Python snippet, imports from the port."""
+    with open(os.path.join(PORT, "recipes", RECIPES[recipe], "run.sh")) as f:
         lines = [line for line in f if "tf_kaldi_speaker_tpu" in line
                  and not line.lstrip().startswith("#")]
-    assert lines and all("tf_kaldi_speaker_tpu_torch.cli." in line for line in lines)
+    assert lines and all("tf_kaldi_speaker_tpu_torch.cli." in line
+                         or line.startswith("from tf_kaldi_speaker_tpu_torch.")
+                         for line in lines)
     assert not [line for line in lines if "tf_kaldi_speaker_tpu." in line]
 
 

@@ -1,0 +1,130 @@
+"""Multitask (speaker+phone) training CLI.
+
+Counterpart of ``tf_kaldi_speaker_tpu/cli/train_mt.py`` (reference
+egs/voxceleb/v1/nnet/lib/train_mt.py) with the same arguments, plus
+``--device`` (default ``cuda``; without a card it raises): the epoch driver
+of ``cli.train`` with the alignment dirs, ``num_phones`` from
+``<ali_dir>/num_pdfs``, the validation EER over the speaker embeddings,
+the learning-rate file or validation-driven halving on the weighted
+spk+phn loss, early stop and ``--cont``. On SIGTERM the epoch stops at the
+next group boundary with a checkpoint and the CLI exits 75.
+
+Usage:
+    python -m tf_kaldi_speaker_tpu_torch.cli.train_mt --config conf.json [--device cuda] \\
+        train_dir train_ali_dir train_spklist \\
+        valid_dir valid_ali_dir valid_spklist model_dir
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from ..backend.metrics import compute_cos_pairwise_eer
+from ..kio import FeatureReaderV2
+from ..multitask import TrainerMultiTask, get_num_phones
+from ..train.preemption import exit_code_if_preempted, install_preemption_handler
+from ..utils import bookkeeping as bk
+from ._frontend import device_or_raise
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cont", action="store_true")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("train_dir")
+    parser.add_argument("train_ali_dir")
+    parser.add_argument("train_spklist")
+    parser.add_argument("valid_dir")
+    parser.add_argument("valid_ali_dir")
+    parser.add_argument("valid_spklist")
+    parser.add_argument("model_dir")
+    args = parser.parse_args(argv)
+
+    device = device_or_raise(args.device)
+    params = bk.save_codes_and_config(args.cont, args.model_dir, args.config)
+    nnet_dir = os.path.join(args.model_dir, "nnet")
+
+    reader = FeatureReaderV2(
+        args.train_dir, args.train_ali_dir,
+        int(params.phone_left_context), int(params.phone_right_context),
+    )
+    dim = reader.dim
+    reader.close()
+    with open(args.train_spklist) as f:
+        num_speakers = len(f.readlines())
+    num_phones = get_num_phones(args.train_ali_dir)
+    bk.write_scalar_file(os.path.join(nnet_dir, "feature_dim"), dim)
+    bk.write_scalar_file(os.path.join(nnet_dir, "num_speakers"), num_speakers)
+    bk.write_scalar_file(os.path.join(nnet_dir, "num_phones"), num_phones)
+
+    trainer = TrainerMultiTask(params, nnet_dir, dim=dim, num_speakers=num_speakers,
+                               num_phones=num_phones, device=device)
+    trainer.build("train", dim, num_speakers=num_speakers, num_phones=num_phones)
+    trainer.build("valid", dim)
+    install_preemption_handler(trainer)
+
+    start_epoch = 0
+    if args.cont:
+        step = trainer.load()
+        start_epoch = step // int(params.num_steps_per_epoch)
+
+    lr_path = os.path.join(nnet_dir, "learning_rate")
+    valid_path = os.path.join(nnet_dir, "valid_loss")
+    lr_schedule = bk.load_learning_rate_schedule(params.learning_rate, int(params.num_epochs))
+    learning_rate = (
+        float(params.learning_rate) if lr_schedule is None else lr_schedule[min(lr_schedule)]
+    )
+    min_lr = float(params.dict.get("min_learning_rate", 1e-6))
+    reduce_lr_epochs = int(params.dict.get("reduce_lr_epochs", 4))
+    early_stop_epochs = int(params.dict.get("early_stop_epochs", 10))
+    best_loss = float("inf")
+    since_improve = since_reduce = 0
+
+    for epoch in range(start_epoch + 1, int(params.num_epochs) + 1):
+        if lr_schedule is not None and epoch in lr_schedule:
+            learning_rate = lr_schedule[epoch]
+        bk.append_lr(lr_path, epoch, learning_rate)
+        trainer.train(args.train_dir, args.train_ali_dir, args.train_spklist, learning_rate)
+        rc = exit_code_if_preempted(trainer)
+        if rc is not None:
+            return rc
+        spk_loss, phn_loss, embeddings, labels = trainer.valid(
+            args.valid_dir, args.valid_ali_dir, args.valid_spklist, output_embeddings=True
+        )
+        rc = exit_code_if_preempted(trainer)
+        if rc is not None:
+            # partial valid pass: not recorded (see cli/train.py)
+            return rc
+        eer = (
+            compute_cos_pairwise_eer(embeddings, labels)
+            if labels is not None and len(labels)
+            else 1.0
+        )
+        total = float(params.dict.get("spk_loss_weight", 1.0)) * spk_loss + float(
+            params.dict.get("phn_loss_weight", 1.0)
+        ) * phn_loss
+        logging.info(
+            "epoch %d: spk %f phn %f eer %.4f lr %g", epoch, spk_loss, phn_loss, eer, learning_rate
+        )
+        bk.append_valid_loss(valid_path, epoch, total, eer)
+        if lr_schedule is None:
+            if total < best_loss:
+                best_loss, since_improve = total, 0
+            else:
+                since_improve += 1
+            since_reduce += 1
+            if since_improve >= reduce_lr_epochs and since_reduce >= reduce_lr_epochs:
+                learning_rate /= 2.0
+                since_reduce = 0
+            if since_improve >= early_stop_epochs or learning_rate < min_lr:
+                break
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

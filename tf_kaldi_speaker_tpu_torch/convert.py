@@ -6,9 +6,14 @@ network's ``{"params": {"tdnn": {...}}, "batch_stats": {"tdnn": {...}}}``
 ``{"params": {"network": {"tdnn": {...}}, "softmax": {"output_kernel",
 ...}}, "batch_stats": {"network": {...}}}``. The port keeps them in
 modules (:class:`~tf_kaldi_speaker_tpu_torch.models.tdnn.EntireNetwork`,
-:class:`~tf_kaldi_speaker_tpu_torch.train.trainer.XVectorModel`) whose
-submodule names are the JAX package's. This module is the only place where
-layouts change:
+:class:`~tf_kaldi_speaker_tpu_torch.train.trainer.XVectorModel`,
+:class:`~tf_kaldi_speaker_tpu_torch.multitask.model.MultitaskModel`, whose
+JAX tree has no ``network`` level: ``params/conv1/kernel``,
+``params/phn_conv5/kernel``, ``params/spk_softmax/output_kernel``) whose
+submodule names are the JAX package's. The trainers' checkpoints carry the
+optimizer state as trees in the params' layout through the same functions,
+so a JAX ``.msgpack`` resumes in the port and the port's tree reads back
+in JAX. This module is the only place where layouts change:
 
 - a module path ``a.b.leaf`` is the JAX path ``(collection, a, b, leaf)``;
   the collection is ``batch_stats`` for BatchNorm's ``mean``/``var``,

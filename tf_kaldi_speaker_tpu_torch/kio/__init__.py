@@ -1,7 +1,8 @@
 """Kaldi ark/scp I/O for the port, numpy only: float matrices (compressed
 included), raw compressed-matrix codes for the device pipe, float vectors,
-r/w-specifiers, wav files and ``wav.scp``, and the data-directory
-``FeatureReader``. Counterpart of
+int vectors (alignments) and posteriors, r/w-specifiers, wav files and
+``wav.scp``, the data-directory ``FeatureReader`` and the multitask
+path's ``FeatureReaderV2``. Counterpart of
 ``tf_kaldi_speaker_tpu/kio`` for the formats the port reads and writes."""
 
 from .ark import (
@@ -13,19 +14,26 @@ from .ark import (
     read_mat_ark,
     read_mat_rspec,
     read_mat_scp,
+    read_post,
+    read_post_ark,
     read_vec_flt,
     read_vec_flt_ark,
     read_vec_flt_scp,
+    read_vec_int,
+    read_vec_int_ark,
     write_mat,
+    write_post,
     write_vec_flt,
+    write_vec_int,
 )
-from .reader import FeatureReader
+from .reader import FeatureReader, FeatureReaderV2
 from .rspecifier import SubprocessFailed, open_or_fd, popen, read_key
 from .wav import read_wav, read_wav_scp, write_wav
 
 __all__ = [
     "ArkScpWriter",
     "FeatureReader",
+    "FeatureReaderV2",
     "SubprocessFailed",
     "compress_matrix",
     "decode_cm_codes",
@@ -37,12 +45,18 @@ __all__ = [
     "read_mat_ark",
     "read_mat_rspec",
     "read_mat_scp",
+    "read_post",
+    "read_post_ark",
     "read_vec_flt",
     "read_vec_flt_ark",
     "read_vec_flt_scp",
+    "read_vec_int",
+    "read_vec_int_ark",
     "read_wav",
     "read_wav_scp",
     "write_mat",
+    "write_post",
     "write_vec_flt",
+    "write_vec_int",
     "write_wav",
 ]

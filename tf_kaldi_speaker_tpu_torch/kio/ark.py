@@ -5,10 +5,13 @@ Counterpart of ``tf_kaldi_speaker_tpu/kio/ark.py``, holding the part of it
 that the port's extraction path and ``chip_smoke.py`` use: the matrix
 readers (compressed matrices included), the compressed-matrix writer, the
 raw-code reader of the decode-on-device pipe (``read_codes_scp``), the
-float-vector readers and writer, and ``ArkScpWriter``. Alignments,
-posteriors and int vectors have no user in the port and are not here.
-``tests/test_torch_kio.py`` holds every function here bit-equal to the JAX
-package's codec in both directions.
+float-vector readers and writer, the int vectors of alignments
+(``read_vec_int``, ``write_vec_int``, ``read_vec_int_ark`` and the ranged
+``_read_subvec_int_binary``), the posteriors (``read_post``,
+``write_post``, ``read_post_ark``) and ``ArkScpWriter``.
+``tests/test_torch_kio.py`` and ``tests/test_torch_multitask.py`` hold
+every function here bit-equal to the JAX package's codec in both
+directions.
 """
 
 from __future__ import annotations
@@ -357,6 +360,26 @@ def _read_vec_flt_binary(fd) -> np.ndarray:
     return np.frombuffer(fd.read(int(dim) * size), dtype=dtype, count=int(dim))
 
 
+def _read_subvec_flt_binary(fd, start: int, length: int) -> np.ndarray:
+    header = fd.read(3).decode()
+    if header == "FV ":
+        dtype, size = np.float32, 4
+    elif header == "DV ":
+        dtype, size = np.float64, 8
+    else:
+        raise UnknownVectorHeader("The header contained '%s'" % header)
+    if fd.read(1).decode() != "\4":
+        raise BadInputFormat("missing int32 size marker")
+    dim = np.frombuffer(fd.read(4), dtype="int32", count=1)[0]
+    _check_dims(dim)
+
+    if start + length > dim:
+        raise ValueError("subvector read out of range")
+    if start > 0:
+        fd.seek(start * size, 1)
+    return np.frombuffer(fd.read(length * size), dtype=dtype, count=int(length))
+
+
 def write_vec_flt(file_or_fd, v: np.ndarray, key: str = "") -> None:
     fd = open_or_fd(file_or_fd, mode="wb")
     try:
@@ -394,6 +417,140 @@ def read_vec_flt_scp(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
         for line in fd:
             key, rxfile = line.decode().split(" ")
             yield key, read_vec_flt(rxfile.strip())
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+# --------------------------------------------------------------------------
+# Int vectors (alignments)
+# --------------------------------------------------------------------------
+
+def read_vec_int(file_or_fd) -> np.ndarray:
+    fd = open_or_fd(file_or_fd)
+    try:
+        binary = fd.read(2).decode()
+        if binary == "\0B":
+            if fd.read(1).decode() != "\4":
+                raise BadInputFormat("missing int32 size marker")
+            dim = np.frombuffer(fd.read(4), dtype="int32", count=1)[0]
+            _check_dims(dim)
+
+            # elements are (int8 size, int32 value) pairs
+            vec = np.frombuffer(
+                fd.read(int(dim) * 5), dtype=[("size", "int8"), ("value", "int32")], count=dim
+            )
+            return vec["value"].copy()
+        arr = (binary + fd.readline().decode()).strip().split()
+        for tok in ("[", "]"):
+            if tok in arr:
+                arr.remove(tok)
+        return np.array(arr, dtype=int)
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+def _read_subvec_int_binary(fd, start: int, length: int) -> np.ndarray:
+    if fd.read(1).decode() != "\4":
+        raise BadInputFormat("missing int32 size marker")
+    dim = np.frombuffer(fd.read(4), dtype="int32", count=1)[0]
+    _check_dims(dim)
+
+    if start + length > dim:
+        raise ValueError("subvector read out of range")
+    if start > 0:
+        fd.seek(start * 5, 1)
+    vec = np.frombuffer(
+        fd.read(length * 5), dtype=[("size", "int8"), ("value", "int32")], count=length
+    )
+    return vec["value"].copy()
+
+
+def write_vec_int(file_or_fd, v: np.ndarray, key: str = "") -> None:
+    fd = open_or_fd(file_or_fd, mode="wb")
+    try:
+        if key != "":
+            fd.write((key + " ").encode("latin1"))
+        fd.write(b"\0B")
+        fd.write(b"\4" + struct.pack("<i", int(v.shape[0])))
+        # interleave the per-element int32 size marker, vectorized
+        out = np.empty(len(v), dtype=[("size", "int8"), ("value", "<i4")])
+        out["size"] = 4
+        out["value"] = np.asarray(v, dtype=np.int32)
+        fd.write(out.tobytes())
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+def read_vec_int_ark(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
+    fd = open_or_fd(file_or_fd)
+    try:
+        key = read_key(fd)
+        while key:
+            yield key, read_vec_int(fd)
+            key = read_key(fd)
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+# --------------------------------------------------------------------------
+# Posteriors (vector<vector<pair<int32, float>>>)
+# --------------------------------------------------------------------------
+
+def read_post(file_or_fd):
+    """Read a Kaldi Posterior: list (frames) of lists of (int id, float post)."""
+    fd = open_or_fd(file_or_fd)
+    try:
+        binary = fd.read(2).decode()
+        if binary != "\0B":
+            raise BadInputFormat("only binary posteriors supported")
+        if fd.read(1).decode() != "\4":
+            raise BadInputFormat("missing int32 size marker")
+        num_frames = int(np.frombuffer(fd.read(4), dtype="int32", count=1)[0])
+        post = []
+        for _ in range(num_frames):
+            if fd.read(1).decode() != "\4":
+                raise BadInputFormat("missing int32 size marker")
+            n = int(np.frombuffer(fd.read(4), dtype="int32", count=1)[0])
+            rec = np.frombuffer(
+                fd.read(n * 10),
+                dtype=[("s1", "int8"), ("id", "int32"), ("s2", "int8"), ("p", "float32")],
+                count=n,
+            )
+            post.append(list(zip(rec["id"].tolist(), rec["p"].tolist())))
+        return post
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+def write_post(file_or_fd, post, key: str = "") -> None:
+    fd = open_or_fd(file_or_fd, mode="wb")
+    try:
+        if key != "":
+            fd.write((key + " ").encode("latin1"))
+        fd.write(b"\0B")
+        fd.write(b"\4" + struct.pack("<i", len(post)))
+        for frame in post:
+            fd.write(b"\4" + struct.pack("<i", len(frame)))
+            for ident, p in frame:
+                fd.write(b"\4" + struct.pack("<i", int(ident)))
+                fd.write(b"\4" + struct.pack("<f", float(p)))
+    finally:
+        if fd is not file_or_fd:
+            fd.close()
+
+
+def read_post_ark(file_or_fd):
+    fd = open_or_fd(file_or_fd)
+    try:
+        key = read_key(fd)
+        while key:
+            yield key, read_post(fd)
+            key = read_key(fd)
     finally:
         if fd is not file_or_fd:
             fd.close()

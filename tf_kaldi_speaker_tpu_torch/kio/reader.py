@@ -10,6 +10,11 @@ that cannot serve it, the port's numpy codec (``kio/ark.py``) decodes the
 whole matrix and slices it, the same values (the decode is elementwise).
 ``tests/test_torch_pool.py`` and ``tests/test_torch_native_decode.py`` hold
 it equal to the JAX reader.
+
+:class:`FeatureReaderV2` (the multitask path's joint feature, VAD and
+alignment reader) is a copy of the JAX package's, its feature rows read
+the same way; ``tests/test_torch_multitask.py`` holds its segments equal
+to the JAX reader's.
 """
 
 from __future__ import annotations
@@ -132,3 +137,139 @@ class FeatureReader:
         if codes.shape[0] < first + count:
             raise ValueError("Not enough frames for codes read")
         return np.ascontiguousarray(codes[first : first + count]), headers, start
+
+
+class FeatureReaderV2:
+    """Joint feature + VAD + alignment segment reader (multitask training).
+
+    Features are expanded by ``left_context``/``right_context`` frames via
+    edge tiling; VAD and alignment are returned for the un-expanded range
+    (parity with reference kaldi_io.py:152-338). The feature rows that the
+    expanded range covers are read through the native reader, or, where it
+    cannot serve them, decoded whole by the numpy codec and sliced.
+    """
+
+    def __init__(self, data_dir: str, ali_dir: str, left_context: int, right_context: int):
+        self.fd: Dict[str, object] = {}
+        self.vad_fd: Dict[str, object] = {}
+        self.ali_fd: Dict[str, object] = {}
+        self.left_context = left_context
+        self.right_context = right_context
+        self.data_dir = data_dir
+        self.ali_dir = ali_dir
+
+        self.utt2num_frames = _load_utt2int(os.path.join(data_dir, "utt2num_frames"))
+        self.utt2feats_offset = _load_scp_offsets(os.path.join(data_dir, "feats.scp"))
+        self.utt2vad_offset = _load_scp_offsets(os.path.join(data_dir, "vad.scp"))
+        self.utt2ali_offset = _load_scp_offsets(os.path.join(ali_dir, "pdf.scp"))
+        self.dim = self.get_dim()
+
+    def get_dim(self) -> int:
+        utt = next(iter(self.utt2feats_offset))
+        mat, _, _, _ = self.read_segment(utt)
+        return mat.shape[1]
+
+    def close(self) -> None:
+        for d in (self.fd, self.vad_fd, self.ali_fd):
+            for fd in d.values():
+                fd.close()
+            d.clear()
+
+    def _fd_at(self, cache: Dict[str, object], filename: str, offset: int):
+        fd = cache.get(filename)
+        if fd is None:
+            fd = open(filename, "rb")
+            cache[filename] = fd
+        fd.seek(offset)
+        return fd
+
+    def _rows(self, filename: str, offset: int, start: int, length: int) -> np.ndarray:
+        """Rows [start, start + length) of the matrix at filename:offset."""
+        fast = read_submat_fast(filename, offset, start, length)
+        if fast is not None:
+            return fast
+        fd = self._fd_at(self.fd, filename, offset)
+        if fd.read(2).decode() != "\0B":
+            raise IOError("Cannot read features from %s" % filename)
+        mat = ark._read_mat_binary(fd)
+        if mat.shape[0] < start + length:
+            raise ValueError("Not enough frames for submatrix read")
+        return mat[start : start + length]
+
+    def read_segment(
+        self,
+        utt: str,
+        length: Optional[int] = None,
+        shuffle: bool = False,
+        start: Optional[int] = None,
+        rng: Optional[random.Random] = None,
+    ):
+        num_features = self.utt2num_frames[utt]
+        if length is not None:
+            if start is None:
+                length = min(length, num_features)
+                if shuffle:
+                    r = rng if rng is not None else random
+                    start = r.randint(0, num_features - 1)
+                    if start + length > num_features:
+                        start = num_features - length
+                else:
+                    start = 0
+            else:
+                if start + length > num_features:
+                    length = num_features - start
+        else:
+            start = 0
+            length = num_features
+        real_start = start - self.left_context
+        real_length = length + self.left_context + self.right_context
+
+        feats_filename, feats_offset = self.utt2feats_offset[utt]
+        tmp_start = max(real_start, 0)
+        tmp_end = min(real_start + real_length, num_features)
+        mat = self._rows(feats_filename, feats_offset, tmp_start, tmp_end - tmp_start)
+        if real_start < 0:
+            mat = np.concatenate([np.tile(mat[0, :], [-real_start, 1]), mat], axis=0)
+        if real_start + real_length > num_features:
+            pad = real_start + real_length - num_features
+            mat = np.concatenate([mat, np.tile(mat[-1, :], [pad, 1])], axis=0)
+        assert mat.shape[0] == real_length
+
+        vad_filename, vad_offset = self.utt2vad_offset[utt]
+        vfd = self._fd_at(self.vad_fd, vad_filename, vad_offset)
+        if vfd.read(2).decode() != "\0B":
+            raise IOError("Cannot read vad from %s" % vad_filename)
+        vad = ark._read_subvec_flt_binary(vfd, start, length)
+
+        ali_filename, ali_offset = self.utt2ali_offset[utt]
+        afd = self._fd_at(self.ali_fd, ali_filename, ali_offset)
+        if afd.read(2).decode() != "\0B":
+            raise IOError("Cannot read ali from %s" % ali_filename)
+        ali = ark._read_subvec_int_binary(afd, start, length)
+
+        assert mat.shape[0] == vad.shape[0] + self.left_context + self.right_context
+        assert mat.shape[0] == ali.shape[0] + self.left_context + self.right_context
+        return mat, vad, ali, start
+
+
+def _load_utt2int(path: str) -> Dict[str, int]:
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    out = {}
+    with open(path) as f:
+        for line in f:
+            utt, v = line.strip().split(" ")
+            out[utt] = int(v)
+    return out
+
+
+def _load_scp_offsets(path: str) -> Dict[str, Tuple[str, int]]:
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    out = {}
+    with open(path) as f:
+        for line in f:
+            utt, info = line.strip().split(" ")
+            filename, offset = info.rsplit(":", 1)
+            out[utt] = (filename, int(offset))
+    return out

@@ -68,9 +68,9 @@ class BatchNorm(nn.Module):
     names follow the JAX package (scale, bias, mean, var).
 
     Eval mode normalizes with the running statistics. Train mode takes the
-    batch's over every axis but the last, in float32 whatever x's dtype,
-    with flax's fast variance max(E[x²] - E[x]², 0); it normalizes in
-    float32, rounds to x's dtype, and updates the running statistics in
+    batch's over every axis but the last, in float32 (float64 for a float64
+    x, as flax promotes), with flax's fast variance max(E[x²] - E[x]², 0);
+    it normalizes in that type, rounds to x's dtype, and updates the running statistics in
     place as ``r = momentum * r + (1 - momentum) * batch`` with the biased
     batch variance (not torch's BatchNorm convention, whose momentum is the
     complement and whose running variance is unbiased)."""
@@ -88,7 +88,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             mul = torch.rsqrt(self.var + self.epsilon) * self.scale
             return (x - self.mean) * mul + self.bias
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
         mean = torch.mean(xf, dim=dims)
         var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
@@ -96,8 +96,8 @@ class BatchNorm(nn.Module):
             m = self.momentum
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)
             self.var.copy_(m * self.var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale.to(torch.float32)
-        return ((xf - mean) * mul + self.bias.to(torch.float32)).to(x.dtype)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.to(xf.dtype)
+        return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(x.dtype)
 
 
 def l2_scaling(x: torch.Tensor, scaling_factor: float, epsilon: float = 1e-12) -> torch.Tensor:

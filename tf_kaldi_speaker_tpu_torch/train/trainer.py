@@ -46,6 +46,9 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
   :meth:`Trainer.train_tune_lr` (``:1268-1317``).
 - Multi-input models (``train/trainer_mi.py``): :meth:`Trainer.train_step`
   and :meth:`Trainer.valid` take the aux streams beside the main one.
+- The multitask trainer (``multitask/trainer.py``) builds its own module
+  (:meth:`Trainer._make_model`) and shares the update
+  (:meth:`Trainer._update`), the checkpoints and the epoch driver.
 
 Not ported, and refused where a config asks for it: ``ShardedDevicePool``
 (``pool_sharded``, multi-card, ROADMAP.md §1 item 7).
@@ -275,10 +278,15 @@ class Trainer:
             self._frozen_stats = [b for name, b in self.network_model.named_buffers()
                                   if _matches(name, noupdate_var_list)]
 
+    def _make_model(self, generator: torch.Generator) -> nn.Module:
+        """The module the trainer trains, its parameters drawn from
+        ``generator`` (on the CPU)."""
+        return XVectorModel(self.params.dict, self.loss_type, self.num_speakers or 1, self.dim,
+                            generator)
+
     def _init_state(self) -> None:
         cfg = self.params.dict
-        g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-        model = XVectorModel(cfg, self.loss_type, self.num_speakers or 1, self.dim, g)
+        model = self._make_model(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
         self.network_model = model.to(self.device)
         self._params = dict(model.named_parameters())
         self.optimizer = Optimizer(cfg, list(self._params.values()))
@@ -316,15 +324,25 @@ class Trainer:
         penalty = (torch.zeros((), device=loss.device) if penalty is None
                    else penalty.to(torch.float32))
         total = loss + reg + penalty
-        leaves = list(params.values())
+        with torch.no_grad():
+            logits = endpoints.get("logits")  # none for the triplet family
+            acc = (torch.zeros((), device=loss.device) if logits is None else
+                   torch.mean((torch.argmax(logits, dim=-1) == labels).to(torch.float32)))
+        self._update(total, lr, frozen_stats)
+        return {"loss": loss.detach(), "regularization_loss": reg.detach(),
+                "penalty_loss": penalty.detach(), "accuracy": acc}
+
+    def _update(self, total: torch.Tensor, lr: float, frozen_stats: List[torch.Tensor]) -> None:
+        """The step's update from the loss ``total``: its gradients, the
+        optimizer, ``params + (-lr * update)``, then the step count.
+        ``frozen_stats`` are the frozen BatchNorm statistics as they were
+        before the forward."""
+        leaves = list(self._params.values())
         # A parameter off the loss's graph (a pooling that taps an aux
         # stream only) gets a zero gradient, as under jax.grad.
         grads = [torch.zeros_like(p) if g is None else g for p, g in
                  zip(leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
         with torch.no_grad():
-            logits = endpoints.get("logits")  # none for the triplet family
-            acc = (torch.zeros((), device=loss.device) if logits is None else
-                   torch.mean((torch.argmax(logits, dim=-1) == labels).to(torch.float32)))
             # Frozen gradients are zeroed before clipping and the optimizer
             # (the reference differentiates the trainable variables only),
             # frozen updates after it, and frozen statistics restored.
@@ -337,8 +355,6 @@ class Trainer:
             for b, old in zip(self._frozen_stats, frozen_stats):
                 b.copy_(old)
         self.step += 1
-        return {"loss": loss.detach(), "regularization_loss": reg.detach(),
-                "penalty_loss": penalty.detach(), "accuracy": acc}
 
     def train_step_raw(self, codes: torch.Tensor, headers: torch.Tensor,
                        labels: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
@@ -402,8 +418,7 @@ class Trainer:
         if noload_var_list:
             cfg = self.params.dict
             g = torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 1)
-            fresh = XVectorModel(cfg, self.loss_type, self.num_speakers or 1, self.dim,
-                                 g).state_dict()
+            fresh = self._make_model(g).state_dict()
             with torch.no_grad():
                 for name, t in self.network_model.state_dict().items():
                     if _matches(name, noload_var_list):

@@ -4,7 +4,8 @@ Counterpart of ``tf_kaldi_speaker_tpu/utils/params.py`` (reference
 ``misc/utils.py:13-61``): a JSON file becomes an attribute object,
 presence-based defaulting goes through ``"key" in params.dict`` and unknown
 keys are tolerated, so the public ``nnet_conf/*.json`` configs load as they
-are. The JAX package's module cannot be imported without jax (its package
+are. ``remove_params_prefix`` (the multitask loss heads' ``spk_``/``phn_``
+keys) is a copy too. The JAX package's module cannot be imported without jax (its package
 ``__init__`` imports the summary writer), so the port carries its own.
 """
 
@@ -39,3 +40,19 @@ class ParamsPlain(Params):
     def __init__(self, **kwargs):
         self.__dict__.update(kwargs)
 
+
+
+def remove_params_prefix(params: Params, prefix: str) -> ParamsPlain:
+    """Strip ``<prefix>_`` from keys (multitask ``spk_``/``phn_`` configs).
+
+    Mirrors reference misc/utils.py:349-366: a key ``spk_loss_func`` becomes
+    ``loss_func`` in the returned object; keys without the prefix are kept.
+    """
+    new = ParamsPlain()
+    pre = prefix if prefix.endswith("_") else prefix + "_"
+    for k, v in params.dict.items():
+        if k.startswith(pre):
+            new.dict[k[len(pre):]] = v
+        else:
+            new.dict.setdefault(k, v)
+    return new

@@ -5,9 +5,16 @@ Usage, from the root of the repository:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mt-step-spread
+    python3 chip_smoke.py --dp-spread
 
 The second form runs only what the multitask step check's bounds are set
-from (``mt_step_spread``) and checks nothing.
+from (``mt_step_spread``) and checks nothing. The third runs the kernels'
+build, phase 9's training and then phase 27 with its step readings from 4
+states (the trained one and 3 fresh seeds) x 4 batches, with its checks:
+the spread that phase 27's bounds sit in. Phase 27 starts this script
+again as the processes of its ranks (``--dp-rank DIR`` and
+``--dp-cli-rank CLI-ARGS``, with the launcher's environment); they are not
+for use by hand.
 
 Phases, each of which raises on failure:
 
@@ -170,7 +177,23 @@ Phases, each of which raises on failure:
    each stage's time; a profiler pass over 8 float32 steps; a float32 step,
    ``extract_mt`` and ``compute_loglike`` on the card against the CPU, each
    with a TF32-on and a bf16 control read against its bound (the step's
-   loss, embeddings and updates).
+   loss, embeddings and updates);
+27. multi-card training (``parallel/``) as 2 ranks on the one card, joined
+   over gloo (NCCL refuses two ranks on one card; gloo runs the port's
+   all-reduces on CUDA tensors): the flagship at full width (bf16, fused
+   pooling) from the sharded device pool, one shard a rank, a global batch
+   of 64 chunks (32 a rank), one epoch of 16 steps in groups of 8 through
+   ``Trainer.train`` (the main path: every rank must launch all three
+   kernels; their shapes replayed, as in 7), the ranks' states bit-equal
+   after it, each rank's second epoch's second group under torch.profiler
+   (step time, device idle share, the all-reduces' share of the wall); 2
+   ranks against 1 on the same global rows and ``model_parallel=2``
+   against 1, float32 steps from two states x 3 pool batches, read against
+   bounds that a TF32-on and a bf16 one-rank control fail; ``sp_embed``
+   over the 2 ranks against the whole forward on the card at 3000 and 1111
+   frames; ``cli.train`` under ``torchrun --nproc_per_node 1`` (a world of
+   one, NCCL, the one-card path) for 8 steps; SIGTERM to rank 1 of a 2-rank
+   ``cli.train``: both exit 75 with one checkpoint at a multiple of 8.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -189,6 +212,7 @@ import random
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -3993,6 +4017,510 @@ def mt_step_spread(torch, root, mfcc_dir, seeds=tuple(range(8)), batches=(13, 14
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: multi-card training (parallel/) as two ranks on the one card
+# ---------------------------------------------------------------------------
+# NCCL refuses two ranks on one card, so the two ranks join over gloo, which
+# runs its all-reduces on CUDA tensors through the host; the port builds
+# every collective from all-reduces for that reason. The main path: the
+# flagship at full width from the sharded device pool (one shard a rank),
+# a 64-chunk global batch (32 a rank), one epoch of 16 steps in groups of 8.
+DP_TRAIN = dict(TRAIN, num_epochs=1, valid_max_iterations=1, show_training_progress=8,
+                stop_poll_groups=1)
+DP_TIMEOUT = 300  # seconds for a collective, and for a rank process
+DP_LENGTH = 296
+# 2 ranks against 1 on the same global rows, float32 with TF32 off, from two
+# states (the trained flagship and a fresh one of its config) x 3 pool
+# batches; and model_parallel=2 on the 2 ranks against the same one-rank
+# step. Readings: the loss's relative gap, the updates' median 1 - cosine
+# over the parameters and the largest 1 - cosine of one parameter's update.
+# Each bound sits between the sound readings on an H100 and a TF32-on and a
+# bf16 one-rank control read against the same reference: ``--dp-spread``
+# (4 states x 4 batches) read at most 1.69e-6, 5.7e-8 and 3.0e-7 sound,
+# and at most 1.5e-4, 4.6e-4 and 9.1e-4 with TF32, 6.0e-3, 3.7e-3 and
+# 6.4e-3 in bf16. The bounds keep 10x above the sound readings, and a
+# parameter's update, which can jump where a ReLU input crosses zero
+# (phase 26), 300x; a control is caught by any reading over its bound.
+# PERF.md section 6 records the spread.
+DP_LOSS_GAP = 2e-5
+DP_UPDATE_COSINE = 5e-6
+DP_PARAM_COSINE = 1e-4
+DP_BOUNDS = (("loss_gap", "the loss's relative gap", DP_LOSS_GAP),
+             ("update_one_minus_cosine", "the updates' median 1 - cosine", DP_UPDATE_COSINE),
+             ("param_one_minus_cosine", "the largest 1 - cosine of one parameter's update",
+              DP_PARAM_COSINE))
+DP_CONTROLS = (("tf32", "float32", True), ("bf16", "bfloat16", False))
+# sp_embed's frame axis split over the 2 ranks against the whole forward on
+# the card, at the JAX package's tolerance (tests/test_sequence_parallel.py)
+SP_FRAMES = (3000, 1111)
+SP_TOL = dict(rtol=5e-3, atol=5e-4)
+
+
+def _dp_trainer(torch, model, device, dtype, **overrides):
+    """A Trainer in ``model``'s state, ``compute_dtype`` ``dtype``, the
+    config's keys overridden."""
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+    from tf_kaldi_speaker_tpu_torch.utils.params import Params
+
+    nnet = os.path.join(model, "nnet")
+    params = Params(os.path.join(nnet, "config.json"))
+    params.dict.update(overrides, compute_dtype=dtype)
+    with open(os.path.join(nnet, "num_speakers")) as f:
+        num_speakers = int(f.read())
+    t = Trainer(params, nnet, dim=FEAT_DIM, num_speakers=num_speakers, device=device)
+    t.build("train")
+    t.load()
+    return t
+
+
+def _flat_state(t, params_only=True):
+    """The train state (split arrays joined) as {path: CPU tensor}: the
+    parameters only, or everything."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.convert import flatten
+
+    return {"/".join(map(str, k)): v for k, v in flatten(t.state_tree()).items()
+            if isinstance(v, torch.Tensor) and (k[0] == "params" or not params_only)}
+
+
+def dp_readings(before, after, loss, want):
+    """The three readings of one step against the one-rank reference
+    ``want`` (its state after the step and its loss)."""
+    cosines = []
+    for path, w in want["after"].items():
+        if not path.startswith("params/") or (
+                path.endswith("/bias") and path.split("/")[-2].endswith(("_conv", "_dense"))):
+            continue  # the biases a BatchNorm follows: float32 noise around zero
+        b = before[path].double().ravel()
+        du, dw = after[path].double().ravel() - b, w.double().ravel() - b
+        cosines.append(1.0 - float(du @ dw / (du.norm() * dw.norm())))
+    return dict(loss_gap=abs(loss - want["loss"]) / abs(want["loss"]),
+                update_one_minus_cosine=float(np.median(cosines)),
+                param_one_minus_cosine=float(max(cosines)))
+
+
+def dp_step(torch, t, batch, rows):
+    """One float32 step of ``t`` on ``rows`` of the raw pool batch; its
+    loss."""
+    codes, hdr, lab = (a.to(t.device) for a in batch)
+    return float(t.train_step_raw(codes[rows], hdr[rows], lab[rows],
+                                  DP_TRAIN["learning_rate"])["loss"])
+
+
+def dp_rank_main(work):
+    """One rank of phase 27 (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT from
+    the parent): the main path, a profiled second epoch, the step readings
+    against the one-rank references, model_parallel=2, sp_embed."""
+    import hashlib
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    from tf_kaldi_speaker_tpu_torch import parallel
+    from tf_kaldi_speaker_tpu_torch.extract.extractor import Extractor
+    from tf_kaldi_speaker_tpu_torch.ops import _build
+    from tf_kaldi_speaker_tpu_torch.parallel.sequence_parallel import sp_embed
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+
+    logging.basicConfig(level=logging.WARNING)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(work, "dp_spec.json")) as f:
+        spec = json.load(f)
+    on_card = spec["device"] == "cuda"
+    dev = parallel.initialize("cuda:0" if on_card else "cpu", backend="gloo",
+                              timeout_s=DP_TIMEOUT)
+    rank, world = parallel.host_shard_info()
+    assert world == 2 and dist.get_backend() == "gloo", (world, dist.get_backend())
+    if on_card:
+        _build.load()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {"rank": rank}
+
+    # the main path: cli.train's epoch loop, one epoch of 16 steps
+    wrappers = kernel_wrappers()
+    t = _dp_trainer(torch, spec["main"], dev, "bfloat16", **{
+        k: v for k, v in DP_TRAIN.items() if k in ("num_steps_per_epoch", "steps_per_dispatch",
+                                                    "show_training_progress", "stop_poll_groups",
+                                                    "device_pool")})
+    assert t.mesh.data_size == 2
+    marks, prof = [], {}
+    post = Trainer._post_group
+
+    def post_group(self, cfg, writer, metrics, K, local_group, t0, step0):
+        sync()
+        marks.append((step0, local_group, time.perf_counter(), float(metrics["loss"])))
+        if prof.get("on") is not None and local_group == 0:
+            prof["run"] = prof.pop("on")
+            prof["run"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif prof.get("run") is not None and local_group == 1:
+            prof["wall"] = time.perf_counter() - prof["t0"]
+            prof["run"].__exit__(None, None, None)
+            prof["done"] = prof.pop("run")
+        post(self, cfg, writer, metrics, K, local_group, t0, step0)
+
+    Trainer._post_group = post_group
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    t0 = time.perf_counter()
+    t.train(spec["train"], spec["spklist"], DP_TRAIN["learning_rate"])
+    sync()
+    out["epoch_s"] = time.perf_counter() - t0
+    out["launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    out["shapes"] = {n: [[list(s), d, c] for (s, d), c in fn.shapes.items()]
+                     for n, fn in wrappers.items()}
+    pool = t._device_pool
+    out["pool"] = [pool.shard, pool.num_shards, len(pool.spk2utts), pool.cap_f]
+    # a second epoch, its second group under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    prof["on"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t.train(spec["train"], spec["spklist"], DP_TRAIN["learning_rate"])
+    Trainer._post_group = post
+    out["marks"] = marks
+    busy_s, n_events, by_name = device_busy(torch, prof["done"])
+    comm = [e for e in prof["done"].events() if e.device_type == torch.autograd.DeviceType.CPU
+            and ("allreduce" in e.name or "all_reduce" in e.name)]
+    out["profile"] = dict(wall_s=prof["wall"], busy_s=busy_s, n_events=n_events,
+                          collective_host_s=1e-6 * busy_us(
+                              [(e.time_range.start, e.time_range.end) for e in comm]),
+                          collective_calls=len([e for e in comm if "c10d" in e.name]),
+                          memcpy_s=1e-6 * sum(us for name, us in by_name.items()
+                                              if "Memcpy" in name or "memcpy" in name),
+                          top=by_name.most_common(8))
+    digest = hashlib.sha256()
+    for path, v in sorted(_flat_state(t, params_only=False).items()):
+        digest.update(path.encode())
+        digest.update(v.numpy().tobytes())
+    out["digest"] = digest.hexdigest()
+    out["final_loss"] = marks[-1][3]
+    t.close()
+
+    # 2 ranks (and model_parallel=2) against the one-rank float32 references
+    out["readings"] = {"dp": [], "mp": []}
+    for i, (model, batch_file, ref_file) in enumerate(spec["readings"]):
+        batch = torch.load(batch_file)
+        want = torch.load(ref_file)
+        for kind, overrides, rows in (("dp", {}, slice(32 * rank, 32 * rank + 32)),
+                                      ("mp", {"model_parallel": 2}, slice(None))):
+            s = _dp_trainer(torch, model, dev, "float32", **overrides)
+            before = _flat_state(s)
+            loss = dp_step(torch, s, batch, rows)
+            out["readings"][kind].append(dp_readings(before, _flat_state(s), loss, want))
+            s.close()
+
+    # sp_embed: one utterance's frames split over the ranks
+    ex = Extractor(spec["sp_model"], device=dev)
+    out["sp"] = [sp_embed(ex.net.tdnn, ex.params.dict, np.load(p), t.mesh, node=ex.node).tolist()
+                 for p in spec["sp_feats"]]
+    write_json(os.path.join(work, "dp_rank%d.json" % rank), out)
+    parallel.shutdown()
+
+
+def dp_cli_rank_main(argv):
+    """One rank of ``cli.train`` on the one card over gloo (NCCL refuses
+    two ranks on one card): the CLI as a launcher runs it, its join
+    pointed at cuda:0 and gloo."""
+    from tf_kaldi_speaker_tpu_torch import parallel
+    from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
+
+    real = parallel.initialize
+    parallel.initialize = lambda device: real("cpu" if device == "cpu" else "cuda:0",
+                                              backend="gloo", timeout_s=DP_TIMEOUT)
+    sys.exit(cli_train.main(argv))
+
+
+def spawn_ranks(args, world=2):
+    """``world`` processes of this script with the launcher's environment."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+               PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__)] + args, cwd=ROOT,
+                             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+
+def wait_ranks(procs, timeout=DP_TIMEOUT):
+    """Each rank's (exit code, output); a rank still running at the
+    deadline is killed and the phase fails."""
+    deadline = time.time() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError("ranks still running after %d s" % timeout) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
+def dp_references(torch, root, trained, train, device="cuda", fresh_seeds=(0,), n_batches=3):
+    """The one-rank float32 references (and controls) on the card: for each
+    state (the trained one, and a fresh one of its config for each of
+    ``fresh_seeds``) x ``n_batches`` pool batches, the state after one step
+    and its loss; each control's readings against it. Returns the first
+    fresh state's model dir too."""
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+    from tf_kaldi_speaker_tpu_torch.utils.params import Params
+
+    states = [trained]
+    for seed in fresh_seeds:
+        fresh = os.path.join(root, "fresh%d" % seed)
+        shutil.copytree(os.path.join(trained, "nnet"), os.path.join(fresh, "nnet"),
+                        ignore=shutil.ignore_patterns("model-*", "checkpoint"))
+        with open(os.path.join(fresh, "nnet", "num_speakers")) as f:
+            num_speakers = int(f.read())
+        cfg_path = os.path.join(fresh, "nnet", "config.json")
+        with open(cfg_path) as f:
+            write_json(cfg_path, dict(json.load(f), seed=seed))
+        params = Params(cfg_path)
+        t = Trainer(params, os.path.join(fresh, "nnet"), dim=FEAT_DIM,
+                    num_speakers=num_speakers, device=device)
+        t.build("train", FEAT_DIM, params.loss_func, num_speakers)
+        t.save(0)
+        states.append(fresh)
+    readings, controls = [], {name: [] for name, _, _ in DP_CONTROLS}
+    batches = _pool_group(torch, train, "cpu", n_batches, DP_LENGTH, 11)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for si, model in enumerate(states):
+        for bi, batch in enumerate(batches):
+            batch_file = os.path.join(root, "batch%d.pt" % bi)
+            torch.save(batch, batch_file)
+            s = _dp_trainer(torch, model, device, "float32")
+            before = _flat_state(s)
+            loss = dp_step(torch, s, batch, slice(None))
+            ref = {"after": _flat_state(s), "loss": loss}
+            ref_file = os.path.join(root, "ref%d_%d.pt" % (si, bi))
+            torch.save(ref, ref_file)
+            readings.append([model, batch_file, ref_file])
+            for name, dtype, tf32 in DP_CONTROLS:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+                c = _dp_trainer(torch, model, device, dtype)
+                c_loss = dp_step(torch, c, batch, slice(None))
+                controls[name].append(dp_readings(before, _flat_state(c), c_loss, ref))
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return states[1], readings, controls
+
+
+def check_dp_bounds(what, readings, controls=None, on_card=True):
+    """Each reading within its bound; each control over it, in one reading
+    at least (the bound catches it; on the card, where the controls'
+    precision differs)."""
+    for key, text, bound in DP_BOUNDS:
+        values = [r[key] for r in readings]
+        print("  %s, %s: %s (bound %g)" % (what, text, ", ".join("%.3g" % v for v in values),
+                                          bound))
+        if not max(values) <= bound:
+            raise AssertionError("%s: %s %.3g over its bound %g" % (what, text, max(values),
+                                                                    bound))
+    for name, runs in (controls or {}).items():
+        caught = [key for key, _, bound in DP_BOUNDS if max(r[key] for r in runs) > bound]
+        print("  the %s control: %s; caught by %s" % (name, "; ".join(
+            "%s %s" % (key, ", ".join("%.3g" % r[key] for r in runs)) for key, _, _ in DP_BOUNDS),
+            caught or "nothing"))
+        if not caught and on_card:
+            raise AssertionError("the %s control passes every bound of %s" % (name, what))
+
+
+def run_torchrun_world_of_one(root, train, valid, device="cuda"):
+    """cli.train under ``torchrun --nproc_per_node 1`` on the card: the
+    process group joins with NCCL (its log line is asserted; gloo with
+    ``--device cpu``), the trainer runs the one-card path, 8 steps and a
+    validation."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    p = s.getsockname()[1]
+    s.close()
+    cfg = write_json(os.path.join(root, "torchrun.json"),
+                     dict(TRAIN, num_epochs=1, num_steps_per_epoch=8, valid_max_iterations=1))
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", "1",
+         "--master_addr", "127.0.0.1", "--master_port", str(p), "-m",
+         "tf_kaldi_speaker_tpu_torch.cli.train", "--config", cfg, "--device", device,
+         train["data"], train["spklist"], valid["data"], valid["spklist"],
+         os.path.join(root, "torchrun_exp")],
+        cwd=ROOT, env=env, text=True, timeout=DP_TIMEOUT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    wall = time.perf_counter() - t0
+    joined = ("process group up (nccl): rank 0/1 on cuda:0" if device == "cuda" else
+              "process group up (gloo): rank 0/1 on cpu") in run.stdout
+    if run.returncode != 0 or not joined or "epoch 1: valid loss" not in run.stdout:
+        raise AssertionError("torchrun cli.train: exit %d, the join logged %s:\n%s"
+                             % (run.returncode, joined, run.stdout[-4000:]))
+    print("torchrun --nproc_per_node 1 cli.train (%s): joined over %s, 8 steps and a "
+          "validation, exit 0 in %.1f s"
+          % (CARD, "NCCL" if device == "cuda" else "gloo", wall))
+    return wall
+
+
+def run_dp_preemption(root, train, valid, device="cuda"):
+    """cli.train as 2 ranks on the card (gloo): SIGTERM to rank 1 after rank
+    0's first progress line; both must exit 75 within the same poll, with
+    one checkpoint at a multiple of K = 8 and no validation line."""
+    from tf_kaldi_speaker_tpu_torch.train.checkpoints import list_steps, read_pointer
+    from tf_kaldi_speaker_tpu_torch.utils.bookkeeping import load_valid_loss
+
+    n = 64
+    cfg = write_json(os.path.join(root, "dp_preempt.json"),
+                     dict(DP_TRAIN, num_steps_per_epoch=n))
+    model = os.path.join(root, "dp_preempt")
+    procs = spawn_ranks(["--dp-cli-rank", "--config", cfg, "--device", device, train["data"],
+                         train["spklist"], valid["data"], valid["spklist"], model])
+    lines = []
+    try:
+        for line in procs[0].stdout:
+            lines.append(line)
+            if "step " in line and ": loss" in line:
+                break
+        else:
+            raise AssertionError("rank 0 exited before a progress line:\n" + "".join(lines))
+        procs[1].send_signal(signal.SIGTERM)
+        t_sig = time.perf_counter()
+        results = wait_ranks(procs)
+        t_exit = time.perf_counter()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nnet = os.path.join(model, "nnet")
+    step = read_pointer(nnet)
+    codes = [rc for rc, _ in results]
+    if codes != [75, 75]:
+        raise AssertionError("SIGTERM to rank 1: exit codes %s, not [75, 75]:\n%s\n%s" % (
+            codes, "".join(lines[-20:]) + results[0][1][-3000:], results[1][1][-3000:]))
+    if list_steps(nnet) != [step] or not 0 < step < n or step % 8:
+        raise AssertionError("checkpoints %s, not one at a multiple of 8 in (0, %d)"
+                             % (list_steps(nnet), n))
+    if load_valid_loss(os.path.join(nnet, "valid_loss")):
+        raise AssertionError("the cut epoch recorded a validation")
+    print("preemption on 2 ranks (%s): SIGTERM to rank 1 after rank 0's progress line -> both "
+          "exit 75 %.2f s later, one checkpoint model-%d (a multiple of K = 8), no validation"
+          % (CARD, t_exit - t_sig, step))
+    return dict(dp_preempt_step=step, dp_preempt_exit_s=t_exit - t_sig)
+
+
+def run_data_parallel(torch, root, trained, train, valid, device="cuda", fresh_seeds=(0,),
+                      n_batches=3):
+    """Phase 27 (the step readings from the trained state and
+    ``fresh_seeds``' fresh ones x ``n_batches`` pool batches). Returns the
+    launches by kernel (both ranks), their shapes and the phase's
+    summary."""
+    from tf_kaldi_speaker_tpu_torch.extract.extractor import Extractor
+
+    t_phase = time.perf_counter()
+    root = os.path.join(root, "dp")
+    os.makedirs(root)
+    fresh, readings, controls = dp_references(torch, root, trained, train, device,
+                                              fresh_seeds, n_batches)
+    sp_model = float32_model(trained, root)
+    sp_feats = []
+    for n in SP_FRAMES:
+        path = os.path.join(root, "sp%d.npy" % n)
+        np.save(path, np.random.RandomState(n).randn(n, FEAT_DIM).astype(np.float32))
+        sp_feats.append(path)
+    # the main path trains (and checkpoints) in a copy of the fresh state
+    main = os.path.join(root, "main")
+    shutil.copytree(fresh, main)
+    write_json(os.path.join(root, "dp_spec.json"), dict(
+        device=device, main=main, train=train["data"], spklist=train["spklist"],
+        readings=readings, sp_model=sp_model, sp_feats=sp_feats))
+    t_ranks = time.perf_counter()
+    results = wait_ranks(spawn_ranks(["--dp-rank", root]))
+    ranks_s = time.perf_counter() - t_ranks
+    for r, (rc, text) in enumerate(results):
+        if rc != 0:
+            raise AssertionError("rank %d exited %d:\n%s" % (r, rc, text[-6000:]))
+    outs = []
+    for r in range(2):
+        with open(os.path.join(root, "dp_rank%d.json" % r)) as f:
+            outs.append(json.load(f))
+    # (c) every rank launched every kernel on the main path
+    launches, shapes = collections.Counter(), {}
+    for o in outs:
+        missing = [n for n, c in o["launches"].items() if not c]
+        if missing and device == "cuda":
+            raise AssertionError("rank %d launched no %s on the main path" % (o["rank"], missing))
+        launches.update(o["launches"])
+        for name, rows_ in o["shapes"].items():
+            counter = shapes.setdefault(name, collections.Counter())
+            for shape, dtype, count in rows_:
+                counter[tuple(shape), dtype] += count
+        print("rank %d: sharded pool shard %d of %d, %d speakers, %d frames; launches %s"
+              % (o["rank"], *o["pool"][:3], o["pool"][3], o["launches"]))
+    # (a) both ranks end bit-equal
+    if outs[0]["digest"] != outs[1]["digest"]:
+        raise AssertionError("the ranks' train states differ after the epoch")
+    losses = [m[3] for m in outs[0]["marks"]]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite group losses %s" % losses)
+    # the unprofiled epoch's group times after its first (which holds the
+    # pool's staging), per rank
+    groups = [[b[2] - a[2] for a, b in zip(o["marks"], o["marks"][1:]) if a[0] == b[0] == 0]
+              for o in outs]
+    step_ms = 1e3 * float(np.median(groups[0])) / DP_TRAIN["steps_per_dispatch"]
+    print("2 ranks on one card over gloo (%s): flagship bf16 from the sharded pool, global "
+          "batch 64 (32 a rank) x %s frames; the ranks' states bit-equal (sha256 %s...); group "
+          "losses %s; step %.3f ms (median of the later groups, %s s)"
+          % (CARD, "200-400", outs[0]["digest"][:16], ["%.4f" % v for v in losses], step_ms,
+             [["%.4f" % g for g in r] for r in groups]))
+    prof = {}
+    for o in outs:
+        p = o["profile"]
+        if not p["n_events"]:
+            print("rank %d: no device events in the trace; idle share not measured" % o["rank"])
+            continue
+        idle = 1 - p["busy_s"] / p["wall_s"]
+        share = p["collective_host_s"] / p["wall_s"]
+        prof["rank%d" % o["rank"]] = dict(wall_s=p["wall_s"], device_idle=idle,
+                                          collective_share=share, memcpy_s=p["memcpy_s"])
+        print("rank %d profile (%s), 8 steps: wall %.4f s, device busy %.4f s (idle %.1f%%); "
+              "all-reduce calls %d, their host spans %.4f s (%.1f%% of the wall: gloo runs them "
+              "on the host, D2H and H2D copies around each), memcpy device time %.4f s"
+              % (o["rank"], CARD, p["wall_s"], p["busy_s"], 100 * idle, p["collective_calls"],
+                 p["collective_host_s"], 100 * share, p["memcpy_s"]))
+        for name, us in p["top"]:
+            print("  %8.3f ms  %s" % (us * 1e-3, name[:100]))
+    # (b), (d): against the one-rank references, with the controls
+    check_dp_bounds("2 ranks vs 1 rank", outs[0]["readings"]["dp"], controls, device == "cuda")
+    check_dp_bounds("model_parallel=2 vs 1", outs[0]["readings"]["mp"])
+    # (e) sp_embed against the whole forward on the card
+    ex = Extractor(sp_model, device=device)
+    sp_err = 0.0
+    for i, path in enumerate(sp_feats):
+        want = torch.from_numpy(ex.embed_utterance(np.load(path)))
+        for o in outs:
+            sp_err = max(sp_err, check_close("sp_embed rank %d [%d frames] vs the whole forward"
+                                             % (o["rank"], SP_FRAMES[i]),
+                                             torch.tensor(o["sp"][i]), want, **SP_TOL))
+    # (f), (g)
+    torchrun_s = run_torchrun_world_of_one(root, train, valid, device)
+    preempt = run_dp_preemption(root, train, valid, device)
+    summary = dict(step_ms=step_ms, ranks_s=ranks_s, epoch_s=[o["epoch_s"] for o in outs],
+                   **prof, sp_max_abs_err=sp_err, torchrun_s=torchrun_s, **preempt,
+                   dp_readings=outs[0]["readings"], controls=controls,
+                   phase_s=time.perf_counter() - t_phase)
+    print("data-parallel phase: %.1f s (the ranks' process %.1f s)"
+          % (summary["phase_s"], ranks_s))
+    return dict(launches), shapes, summary
+
+
 def main():
     import logging
 
@@ -4001,8 +4529,9 @@ def main():
     global CARD
     t_start = time.perf_counter()
     spread = sys.argv[1:] == ["--mt-step-spread"]
-    if sys.argv[1:] and not spread:
-        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread]")
+    dp_spread = sys.argv[1:] == ["--dp-spread"]
+    if sys.argv[1:] and not (spread or dp_spread):
+        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread | --dp-spread]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs the port on a GPU")
@@ -4042,6 +4571,13 @@ def main():
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     os.makedirs(WORK_DIR)
+    if dp_spread:
+        train, valid = write_corpus(WORK_DIR)
+        trained = run_training(torch, WORK_DIR, train, valid)[2]
+        summary = run_data_parallel(torch, WORK_DIR, trained, train, valid,
+                                    fresh_seeds=(0, 1, 2), n_batches=4)[2]
+        print("data-parallel spread (%s): %s" % (CARD, json.dumps(summary)))
+        return
     model = write_model_dir(torch, os.path.join(WORK_DIR, "model"))
     scp = write_ark(WORK_DIR)
     launches, shapes, host = run_extraction(torch, model, scp, WORK_DIR)
@@ -4106,11 +4642,14 @@ def main():
     paths["fisher"], fisher_shapes, fisher_summary = run_fisher_recipe(torch, WORK_DIR)
     replay_mix(torch, {k: v for k, v in fisher_shapes.items() if v}, rows, flush,
                prefix="fisher_mix_")
-    del flush
     print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
     paths["mt"], mt_summary = run_multitask_recipe(
         torch, WORK_DIR, os.path.join(WORK_DIR, "fisher", "data", "train_background", "mfcc"))
     print("multitask recipe summary (%s): %s" % (CARD, json.dumps(mt_summary)))
+    paths["dp"], dp_shapes, dp_summary = run_data_parallel(torch, WORK_DIR, trained, train, valid)
+    replay_mix(torch, {k: v for k, v in dp_shapes.items() if v}, rows, flush, prefix="dp_mix_")
+    del flush
+    print("data-parallel summary (%s): %s" % (CARD, json.dumps(dp_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []
@@ -4129,5 +4668,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dp-cli-rank"]:
+        dp_cli_rank_main(sys.argv[2:])
+    else:
+        main()
     sys.exit(0)

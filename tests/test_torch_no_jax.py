@@ -66,7 +66,13 @@ def test_port_imports_without_jax():
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_mt',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_mt_phone',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.compute_loglike',\n"
-        "        'tf_kaldi_speaker_tpu_torch.cli.train_mt_lr_learning'} <= set(mods), mods\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_mt_lr_learning',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli._launch',\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel',\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel.distributed',\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel.mesh',\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel.sharding_rules',\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel.sequence_parallel'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"

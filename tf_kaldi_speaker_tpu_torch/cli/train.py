@@ -27,6 +27,7 @@ from ..kio import FeatureReader
 from ..train.preemption import exit_code_if_preempted, install_preemption_handler
 from ..train.trainer import Trainer
 from ..utils import bookkeeping as bk
+from . import _launch
 
 
 def main(argv=None) -> int:
@@ -42,7 +43,8 @@ def main(argv=None) -> int:
     parser.add_argument("model_dir")
     args = parser.parse_args(argv)
 
-    params = bk.save_codes_and_config(args.cont, args.model_dir, args.config)
+    device = _launch.start(args.device)
+    params = _launch.model_dir_params(args.cont, args.model_dir, args.config, device)
     nnet_dir = os.path.join(args.model_dir, "nnet")
 
     reader = FeatureReader(args.train_dir)
@@ -50,10 +52,10 @@ def main(argv=None) -> int:
     reader.close()
     with open(args.train_spklist) as f:
         num_speakers = len(f.readlines())
-    bk.write_scalar_file(os.path.join(nnet_dir, "feature_dim"), dim)
-    bk.write_scalar_file(os.path.join(nnet_dir, "num_speakers"), num_speakers)
+    _launch.on_main(bk.write_scalar_file, os.path.join(nnet_dir, "feature_dim"), dim)
+    _launch.on_main(bk.write_scalar_file, os.path.join(nnet_dir, "num_speakers"), num_speakers)
 
-    trainer = Trainer(params, nnet_dir, dim=dim, num_speakers=num_speakers, device=args.device)
+    trainer = Trainer(params, nnet_dir, dim=dim, num_speakers=num_speakers, device=device)
     trainer.build("train", dim, params.loss_func, num_speakers)
     trainer.build("valid", dim, params.loss_func, num_speakers)
     install_preemption_handler(trainer)
@@ -89,7 +91,7 @@ def main(argv=None) -> int:
         for epoch in range(start_epoch + 1, int(params.num_epochs) + 1):
             if lr_schedule is not None and epoch in lr_schedule:
                 learning_rate = lr_schedule[epoch]
-            bk.append_lr(lr_path, epoch, learning_rate)
+            _launch.on_main(bk.append_lr, lr_path, epoch, learning_rate)
             trainer.train(args.train_dir, args.train_spklist, learning_rate)
             rc = exit_code_if_preempted(trainer)
             if rc is not None:
@@ -107,7 +109,7 @@ def main(argv=None) -> int:
             eer = compute_cos_pairwise_eer(embeddings, labels) if len(labels) else 1.0
             logging.info("epoch %d: valid loss %f eer %.4f lr %g",
                          epoch, valid_loss, eer, learning_rate)
-            bk.append_valid_loss(valid_path, epoch, valid_loss, eer)
+            _launch.on_main(bk.append_valid_loss, valid_path, epoch, valid_loss, eer)
 
             if lr_schedule is None:
                 # Validation-driven halving (reference train.py:108-120).

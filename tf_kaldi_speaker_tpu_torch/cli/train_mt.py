@@ -27,6 +27,7 @@ from ..kio import FeatureReaderV2
 from ..multitask import TrainerMultiTask, get_num_phones
 from ..train.preemption import exit_code_if_preempted, install_preemption_handler
 from ..utils import bookkeeping as bk
+from . import _launch
 from ._frontend import device_or_raise
 
 
@@ -46,7 +47,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     device = device_or_raise(args.device)
-    params = bk.save_codes_and_config(args.cont, args.model_dir, args.config)
+    device = _launch.start(args.device)
+    params = _launch.model_dir_params(args.cont, args.model_dir, args.config, device)
     nnet_dir = os.path.join(args.model_dir, "nnet")
 
     reader = FeatureReaderV2(
@@ -58,9 +60,9 @@ def main(argv=None) -> int:
     with open(args.train_spklist) as f:
         num_speakers = len(f.readlines())
     num_phones = get_num_phones(args.train_ali_dir)
-    bk.write_scalar_file(os.path.join(nnet_dir, "feature_dim"), dim)
-    bk.write_scalar_file(os.path.join(nnet_dir, "num_speakers"), num_speakers)
-    bk.write_scalar_file(os.path.join(nnet_dir, "num_phones"), num_phones)
+    _launch.on_main(bk.write_scalar_file, os.path.join(nnet_dir, "feature_dim"), dim)
+    _launch.on_main(bk.write_scalar_file, os.path.join(nnet_dir, "num_speakers"), num_speakers)
+    _launch.on_main(bk.write_scalar_file, os.path.join(nnet_dir, "num_phones"), num_phones)
 
     trainer = TrainerMultiTask(params, nnet_dir, dim=dim, num_speakers=num_speakers,
                                num_phones=num_phones, device=device)
@@ -88,7 +90,7 @@ def main(argv=None) -> int:
     for epoch in range(start_epoch + 1, int(params.num_epochs) + 1):
         if lr_schedule is not None and epoch in lr_schedule:
             learning_rate = lr_schedule[epoch]
-        bk.append_lr(lr_path, epoch, learning_rate)
+        _launch.on_main(bk.append_lr, lr_path, epoch, learning_rate)
         trainer.train(args.train_dir, args.train_ali_dir, args.train_spklist, learning_rate)
         rc = exit_code_if_preempted(trainer)
         if rc is not None:
@@ -111,7 +113,7 @@ def main(argv=None) -> int:
         logging.info(
             "epoch %d: spk %f phn %f eer %.4f lr %g", epoch, spk_loss, phn_loss, eer, learning_rate
         )
-        bk.append_valid_loss(valid_path, epoch, total, eer)
+        _launch.on_main(bk.append_valid_loss, valid_path, epoch, total, eer)
         if lr_schedule is None:
             if total < best_loss:
                 best_loss, since_improve = total, 0

@@ -133,6 +133,7 @@ class KaldiMultiDataRandomQueue(PrefetchLoader):
         max_len: int = 400,
         shuffle: bool = True,
         seed: int = 0,
+        length_seed: "int | None" = None,
         group: int = 1,
     ):
         _, _, spk2index = get_aux_speaker_info(data_dir, aux_data, spklist)
@@ -141,7 +142,8 @@ class KaldiMultiDataRandomQueue(PrefetchLoader):
         def factory(worker_seed: int):
             return MultiRandomChunkSampler(
                 data_dir, aux_data, spklist, num_speakers, num_segments,
-                min_len, max_len, shuffle, worker_seed, group=group,
+                min_len, max_len, shuffle, worker_seed,
+                length_seed=length_seed, group=group,
             )
 
         super().__init__(factory, num_parallel, max_qsize, base_seed=seed, finite=False)

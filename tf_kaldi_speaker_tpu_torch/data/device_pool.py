@@ -17,10 +17,12 @@ residency rotates through ``rotation_rounds`` windows per coverage cycle,
 "utts" (every speaker in every window) or "speakers" (a partition of the
 speaker set); see the JAX module's docstring for the measured trade-off.
 
+:class:`ShardedDevicePool` splits the pool over the data ranks of a
+multi-card run: every rank computes the same speaker-to-shard map and
+stages only its own shard on its card.
+
 Left out: the JAX module's 4 MB staging slices, which work around a
-high-latency host link (the card takes one copy per array), and
-``ShardedDevicePool``, which comes with the parallelism slice (ROADMAP.md
-§1 item 7).
+high-latency host link (the card takes one copy per array).
 """
 
 from __future__ import annotations
@@ -590,6 +592,196 @@ class DevicePool:
         self.frames = None
         self.headers = None
         # A later stage() must rebuild rather than no-op on a closed pool.
+        self.resident_round = -1
+        self.full_resident = False
+
+
+class ShardedDevicePool:
+    """The corpus pool split over ``num_shards`` data ranks (JAX
+    ``ShardedDevicePool``, ``device_pool.py:693-958``): shard d holds its
+    own speakers, so the pool's capacity grows with the card count and
+    every gather stays on the rank's card.
+
+    Every rank computes the same speaker-to-shard assignment (``_lpt_assign``
+    over the shared data dir, frames-balanced) and the same planned
+    per-shard capacity, reads and stages only shard ``shard`` (its data
+    rank) onto ``device``, and :meth:`sample_group` yields that shard's
+    ``[K, B_local]`` rows, drawn from its resident speakers with
+    shard-local starts and utterance rows: the counterpart of one JAX
+    process holding one device of the data axis. One shard of one is the
+    JAX pool on a one-device mesh."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        spklist: str,
+        num_shards: int = 1,
+        shard: int = 0,
+        budget_bytes: Optional[int] = None,
+        seed: int = 0,
+        rotation_unit: str = "utts",
+        chunk_frames: Optional[int] = None,
+        device="cuda",
+    ):
+        if rotation_unit not in ("utts", "speakers"):
+            raise ValueError("rotation_unit must be 'utts' or 'speakers'")
+        if not 0 <= shard < num_shards:
+            raise ValueError("shard %d of %d" % (shard, num_shards))
+        self.rotation_unit = rotation_unit
+        self.chunk_frames = chunk_frames
+        self.data_dir = data_dir
+        self.num_shards = int(num_shards)
+        self.shard = int(shard)
+        self.device = torch.device(device)
+        self.budget_bytes = budget_bytes
+        self.seed = seed
+        spk2features, _, _ = get_speaker_info(data_dir, spklist)
+        self.spk2features = spk2features
+        self.reader = FeatureReader(data_dir)
+        self.dim = self.reader.dim
+        if rotation_unit == "utts":
+            self.rotation_rounds, _ = _plan_rotation_utts(
+                self.reader, spk2features, self.dim, budget_bytes, seed,
+                chunk_frames=chunk_frames)
+        else:
+            self.rotation_rounds, _ = _effective_rounds(
+                self.reader, spk2features, self.dim, budget_bytes, seed,
+                min_speakers=self.num_shards)
+        # one planned per-shard capacity for every rotation window
+        self._cap_f = self._cap_n = 0
+        if self.rotation_rounds > 1:
+            if rotation_unit == "utts":
+                self._cap_f, self._cap_n = _plan_capacity_utts(
+                    self.reader, spk2features, self.dim, self.rotation_rounds, seed,
+                    shards=self.num_shards, chunk_frames=chunk_frames)
+            else:
+                self._cap_f, self._cap_n = _plan_capacity(
+                    self.reader, spk2features, self.dim, self.rotation_rounds, seed,
+                    min_speakers=self.num_shards, shards=self.num_shards)
+        self.frames: Optional[torch.Tensor] = None   # [cap_f, D] this shard's codes
+        self.headers: Optional[torch.Tensor] = None  # [cap_n, 4, D]
+        # this shard's host index: utterance rows and frame offsets are local
+        self.spk2utts: Dict[int, List[int]] = {}
+        self.utt_len = np.zeros(0, np.int32)
+        self.utt_offset = np.zeros(0, np.int32)
+        self.cap_f = self.cap_n = 0
+        self.resident_round = -1
+        self.full_resident = False
+
+    def _select_resident(self, round_id: int) -> List[Tuple[int, str]]:
+        if self.rotation_unit == "utts":
+            items, full = _select_resident_items_utts(
+                self.reader, self.spk2features, self.dim, self.budget_bytes,
+                self.seed, round_id, self.rotation_rounds, chunk_frames=self.chunk_frames)
+        else:
+            items, full = _select_resident_items(
+                self.reader, self.spk2features, self.dim, self.budget_bytes,
+                self.seed, round_id, min_speakers=self.num_shards)
+        if full:
+            self.full_resident = True
+        return items
+
+    def stage(self, round_id: int = 0) -> None:
+        """(Re)load this shard's resident utterances onto the device."""
+        if self.resident_round == round_id or (self.full_resident and self.frames is not None):
+            return
+        items = self._select_resident(round_id)
+        spk_items: Dict[int, List[str]] = {}
+        for spk, seg in items:
+            spk_items.setdefault(spk, []).append(seg)
+        spk_frames = {spk: sum(self.reader.utt2num_frames[s.split(" ")[0]] for s in segs)
+                      for spk, segs in spk_items.items()}
+        S = self.num_shards
+        if len(spk_items) < S:
+            raise ValueError("sharded pool needs >= %d resident speakers (got %d)"
+                             % (S, len(spk_items)))
+        shard_of, load = _lpt_assign(spk_frames, S)
+        cap_f = -(-max(load) // 8) * 8
+        cap_n = max(sum(len(spk_items[s]) for s in spk_items if shard_of[s] == d)
+                    for d in range(S))
+        # rotation windows share the planned capacity (grow-only)
+        if self.rotation_rounds > 1:
+            if cap_f > self._cap_f or cap_n > self._cap_n:
+                log.warning("rotation window (%d frames, %d utts per shard) exceeds planned "
+                            "capacity (%d, %d); growing", cap_f, cap_n, self._cap_f, self._cap_n)
+                self._cap_f = max(self._cap_f, cap_f)
+                self._cap_n = max(self._cap_n, cap_n)
+            cap_f, cap_n = self._cap_f, self._cap_n
+        if cap_f >= 2**31:
+            raise ValueError("per-shard pool of %d frames exceeds the int32 index space; set "
+                             "a pool budget" % cap_f)
+        host_frames = np.zeros((cap_f, self.dim), np.uint8)
+        host_headers = np.zeros((cap_n, 4, self.dim), np.float32)
+        self.spk2utts = {}
+        self.utt_len = np.zeros(cap_n, np.int32)
+        self.utt_offset = np.zeros(cap_n, np.int32)
+        fill_f = fill_n = 0
+        for spk in sorted(spk_items):
+            if shard_of[spk] != self.shard:
+                continue
+            for seg in spk_items[spk]:
+                codes, headers, _ = self.reader.read_segment_codes(seg)
+                n = codes.shape[0]
+                host_frames[fill_f:fill_f + n] = codes
+                host_headers[fill_n] = headers
+                self.utt_len[fill_n] = n
+                self.utt_offset[fill_n] = fill_f
+                self.spk2utts.setdefault(spk, []).append(fill_n)
+                fill_f += n
+                fill_n += 1
+        self.cap_f, self.cap_n = cap_f, cap_n
+        self.frames = self.headers = None
+        self.frames = torch.from_numpy(host_frames).to(self.device)
+        self.headers = torch.from_numpy(host_headers).to(self.device)
+        self.resident_round = round_id
+        log.info("sharded device pool staged: shard %d of %d, %d frames cap (%.1f MB), "
+                 "%d of %d speakers", self.shard, S, cap_f, cap_f * self.dim / 1e6,
+                 len(self.spk2utts), len(spk_items))
+
+    def sample_group(
+        self,
+        rng: random.Random,
+        group: int,
+        num_speakers: int,
+        num_segments: int,
+        batch_length: int,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(starts, utts, labels) [K, B_local]: this shard's rows of the
+        global batch (``num_speakers / num_shards`` speakers each), starts
+        and utterance rows local to the shard's tensors."""
+        S = self.num_shards
+        if num_speakers % S:
+            raise ValueError("num_speakers_per_batch=%d must divide the %d-way data axis"
+                             % (num_speakers, S))
+        per = num_speakers // S
+        B_local = per * num_segments
+        starts = np.zeros((group, B_local), np.int32)
+        utts = np.zeros((group, B_local), np.int32)
+        labels = np.zeros((group, B_local), np.int32)
+        speakers = list(self.spk2utts.keys())
+        if len(speakers) < per:
+            speakers = speakers * (per // len(speakers) + 1)
+        for k in range(group):
+            batch_speakers = rng.sample(speakers, per)
+            for i in range(per):
+                try:
+                    spk, rows = _draw_speaker_rows(
+                        rng, self.spk2utts, lambda u: int(self.utt_len[u]),
+                        lambda u: int(self.utt_offset[u]),
+                        batch_speakers, i, num_segments, batch_length)
+                except ValueError as e:
+                    raise ValueError("shard %d: %s" % (self.shard, e)) from None
+                r0 = i * num_segments
+                labels[k, r0:r0 + num_segments] = spk
+                for j, (u, st) in enumerate(rows):
+                    utts[k, r0 + j] = u
+                    starts[k, r0 + j] = st
+        return starts, utts, labels
+
+    def close(self) -> None:
+        self.reader.close()
+        self.frames = None
+        self.headers = None
         self.resident_round = -1
         self.full_resident = False
 

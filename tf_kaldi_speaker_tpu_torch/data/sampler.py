@@ -266,6 +266,7 @@ class MultiRandomChunkSampler:
         shuffle: bool = True,
         seed: int = 0,
         num_buckets: int = 8,
+        length_seed: Optional[int] = None,
         group: int = 1,
     ):
         self.data_dir = data_dir
@@ -277,7 +278,8 @@ class MultiRandomChunkSampler:
         self.buckets = bucket_lengths(min_len, max_len, num_buckets)
         self.shuffle = shuffle
         self.rng = random.Random(seed)
-        self.length_rng = random.Random(seed)
+        # shared multi-rank length stream (see RandomChunkSampler)
+        self.length_rng = random.Random(seed if length_seed is None else length_seed)
         self.group = int(group)
         self.readers: Optional[Dict[str, FeatureReader]] = None
 

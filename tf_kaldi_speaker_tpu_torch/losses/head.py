@@ -19,6 +19,16 @@ terms (``aux_loss_func``, ``head.py:140-179``):
 Margins can be overridden at call time (``margin_override``), the aux
 terms switched off (``aux_enabled``) and the loss swapped (``loss_func``):
 the trainer does all three during validation.
+
+On a mesh of more than one rank (``mesh``, set by ``parallel.shard_model``)
+the head computes the loss of the global batch, as pjit does: the rows of
+the data group are gathered (``all_gather``: each rank's embeddings reach
+every rank, and the gradient of each rank's share of the loss flows back
+to the rows it came from), so the structural losses mine the whole batch
+and the "average" centers move identically on every rank. Under model
+parallelism the softmax family runs on this rank's column block
+(``margin.ColumnShard``); the MHE term and the generalized triplet use the
+whole kernel, joined over the model group, as JAX's SPMD computes them.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_gather, all_reduce_max, all_reduce_min, gather_replicated
 from . import margin as M
 from . import triplet as T
 
@@ -81,6 +92,7 @@ class LossHead(nn.Module):
         self.loss_func = loss_func
         self.config = dict(config)
         self.num_outputs = num_outputs
+        self.mesh = None
         if loss_func in KERNEL_LOSSES:
             self.output_kernel = nn.Parameter(torch.empty(dim, num_outputs))
             limit = math.sqrt(6.0 / (dim + num_outputs))
@@ -117,10 +129,19 @@ class LossHead(nn.Module):
         name = loss_func or self.loss_func
         if name not in LOSS_NAMES:
             raise NotImplementedError("Not implement %s loss" % name)
+        mesh = self.mesh
+        if mesh is not None and mesh.data_size > 1:
+            rows = (mesh.data_group, mesh.data_rank, mesh.data_size)
+            features = all_gather(features, *rows)
+            labels = all_gather(labels, *rows)
+            if sample_weight is not None:
+                sample_weight = all_gather(sample_weight, *rows)
+        shard = self._shard()
         kernel = getattr(self, "output_kernel", None)
         endpoints: Dict[str, torch.Tensor] = {} if kernel is None else {"softmax_w": kernel}
         if name == "softmax":
-            loss, ep = M.softmax_loss(features, labels, kernel, self.output_bias, sample_weight)
+            loss, ep = M.softmax_loss(features, labels, kernel, self.output_bias, sample_weight,
+                                      shard)
         elif name == "semihard_triplet_loss":
             loss, ep = T.semihard_triplet_loss(
                 features, labels, float(cfg["margin"]), cfg.get("triplet_loss_squared", False))
@@ -132,7 +153,7 @@ class LossHead(nn.Module):
                 features, labels, int(cfg["num_valid_speakers_per_batch"]),
                 int(cfg["num_valid_segments_per_speaker"]))
         elif name == "generalized_angular_triplet_loss":
-            loss, ep = self._generalized_triplet(features, labels, kernel)
+            loss, ep = self._generalized_triplet(features, labels, self._whole_kernel())
         else:
             key, prefix = _MARGIN_KEYS[name]
             m = margin_override if margin_override is not None else cfg[key]
@@ -143,13 +164,44 @@ class LossHead(nn.Module):
                   "additive_margin_softmax": M.amsoftmax_loss,
                   "additive_angular_margin_softmax": M.arcsoftmax_loss}[name]
             m = int(m) if name == "asoftmax" else float(m)
-            loss, ep = fn(features, labels, kernel, m, lam, sample_weight)
+            loss, ep = fn(features, labels, kernel, m, lam, sample_weight, shard)
         endpoints.update(ep)
         if aux_enabled:
             loss = self._aux(loss, endpoints, features, labels, sample_weight)
         endpoints["loss"] = loss
         endpoints["labels"] = labels
         return loss, endpoints
+
+    def _shard(self) -> Optional[M.ColumnShard]:
+        """This rank's column block of the classes under model parallelism."""
+        mesh = self.mesh
+        if mesh is None or mesh.model_size == 1 or not hasattr(self, "output_kernel"):
+            return None
+        width = self.output_kernel.shape[1]
+        return M.ColumnShard(mesh.model_group, mesh.model_rank * width, self.num_outputs)
+
+    def _whole_kernel(self) -> torch.Tensor:
+        """The output kernel [D, C], joined over the model group when split."""
+        kernel = self.output_kernel
+        shard = self._shard()
+        if shard is None:
+            return kernel
+        return gather_replicated(kernel, shard.group, self.mesh.model_rank,
+                                 self.mesh.model_size, dim=1)
+
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each row's predicted class from the ``logits`` endpoint: the first
+        of equal maxima, as ``torch.argmax``, across the column blocks under
+        model parallelism."""
+        shard = self._shard()
+        if shard is None:
+            return torch.argmax(logits, dim=-1)
+        value, index = torch.max(logits, dim=-1)
+        value = value.float()
+        top = all_reduce_max(value, shard.group)
+        index = torch.where(value == top, index + shard.col0,
+                            torch.full_like(index, shard.num_classes))
+        return all_reduce_min(index, shard.group)
 
     def _aux(self, loss, endpoints, features, labels, sample_weight):
         """The ring and MHE terms added to ``loss`` (reference
@@ -174,7 +226,7 @@ class LossHead(nn.Module):
             else:
                 # minimum hyperspherical energy over the column-normalized
                 # softmax weights (loss.py:1017-1034)
-                kernel = self.output_kernel
+                kernel = self._whole_kernel()
                 w_norm = kernel / torch.clamp_min(
                     torch.linalg.vector_norm(kernel, dim=0, keepdim=True), EPS)
                 sel_w = w_norm.t()[labels]  # [B, D]

@@ -11,28 +11,68 @@ All functions are pure: (features [B, D], labels [B], kernel [D, C], ...)
 parameter of :class:`~tf_kaldi_speaker_tpu_torch.losses.head.LossHead`.
 Clipping goes through ``torch.maximum`` / ``torch.minimum``, whose gradient
 splits at a tie as ``jnp.clip``'s does.
+
+Model parallelism (``model_parallel`` > 1, ``parallel/sharding_rules.py``):
+with a :class:`ColumnShard` the kernel (and the softmax bias) is this
+rank's column block and the logits are local; the row max (no gradient:
+the log-sum-exp does not depend on it), the sum of exponentials and each
+row's target logit are all-reduced over the model group, whose ranks all
+compute the same loss; the margin applies to the target column on the rank
+that owns it. The embeddings enter the local product, and the margin's
+change of the target logit its column, through ``copy_to_group``, so their
+gradients sum every block's share.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import all_reduce_max, copy_to_group, reduce_replicated
 
 EPS = 1e-12
 
 
+class ColumnShard(NamedTuple):
+    """This rank's block of the classes: columns ``col0`` onwards of
+    ``num_classes``, split over ``group`` (the model group)."""
+
+    group: Any
+    col0: int
+    num_classes: int
+
+
+def _select(logits: torch.Tensor, labels: torch.Tensor,
+            shard: Optional[ColumnShard] = None) -> torch.Tensor:
+    """Each row's target logit; with a shard, the owning rank's entry
+    summed over the model group (zero on the others)."""
+    if shard is None:
+        return torch.gather(logits, 1, labels[:, None].long())[:, 0]
+    local = labels.long() - shard.col0
+    owned = (local >= 0) & (local < logits.shape[-1])
+    sel = torch.gather(logits, 1, torch.where(owned, local, torch.zeros_like(local))[:, None])
+    return reduce_replicated(torch.where(owned, sel[:, 0], torch.zeros_like(sel[:, 0])),
+                             shard.group)
+
+
 def sparse_softmax_xent(
-    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None,
+    shard: Optional[ColumnShard] = None,
 ) -> torch.Tensor:
     """Mean sparse softmax cross-entropy (tf.losses semantics).
 
     ``weights`` [B] (optional) is a row-validity weight: the mean is taken
     over sum(weights) instead of B, so rows padded for device-count
     alignment (weight 0) do not bias the loss."""
-    logz = torch.logsumexp(logits, dim=-1)
-    sel = torch.gather(logits, 1, labels[:, None].long())[:, 0]
+    if shard is None:
+        logz = torch.logsumexp(logits, dim=-1)
+    else:
+        top = all_reduce_max(torch.amax(logits, dim=-1), shard.group)
+        logz = torch.log(reduce_replicated(torch.sum(torch.exp(logits - top[:, None]), dim=-1),
+                                           shard.group)) + top
+    sel = _select(logits, labels, shard)
     per_row = logz - sel
     if weights is None:
         return torch.mean(per_row)
@@ -58,37 +98,50 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
 
 
-def _normalized_logits(features: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def _normalized_logits(features: torch.Tensor, kernel: torch.Tensor,
+                       shard: Optional[ColumnShard] = None) -> torch.Tensor:
     """logits against column-normalized weights."""
     norm = torch.linalg.vector_norm(kernel, dim=0, keepdim=True)
-    return features @ (kernel / torch.clamp_min(norm, EPS))
+    return _local(features, shard) @ (kernel / torch.clamp_min(norm, EPS))
 
 
-def _target_cos(logits, features, labels):
-    sel = torch.gather(logits, 1, labels[:, None].long())[:, 0]
+def _local(features: torch.Tensor, shard: Optional[ColumnShard]) -> torch.Tensor:
+    """The embeddings as they enter a product with this rank's columns."""
+    return features if shard is None else copy_to_group(features, shard.group)
+
+
+def _target_cos(logits, features, labels, shard=None):
+    sel = _select(logits, labels, shard)
     fnorm = torch.clamp_min(torch.linalg.vector_norm(features, dim=1), EPS)
     cos = _clip(sel / fnorm, -1 + EPS, 1 - EPS)
     return sel, fnorm, cos
 
 
-def _blend(logits, labels, sel, scaled, lam):
+def _blend(logits, labels, sel, scaled, lam, shard=None):
     """fs * logits + fa * (logits with the target replaced by ``scaled``), in
     the type that JAX promotes logits and the float32 lambda to."""
     fa = 1.0 / (1.0 + lam)
     fs = 1.0 - fa
     classes = torch.arange(logits.shape[-1], device=logits.device)
+    delta = scaled - sel
+    if shard is not None:
+        classes = classes + shard.col0
+        # computed on every rank, used on the target's: its gradient is
+        # summed over the model group so that every rank has it whole
+        delta = copy_to_group(delta, shard.group)
     onehot = (labels.long()[:, None] == classes).to(logits.dtype)
-    logits_margin = logits + onehot * (scaled - sel)[:, None]
+    logits_margin = logits + onehot * delta[:, None]
     dtype = torch.promote_types(logits.dtype, lam.dtype)
     return fs * logits.to(dtype) + fa * logits_margin.to(dtype)
 
 
 def softmax_loss(
-    features, labels, kernel, bias, weights=None
+    features, labels, kernel, bias, weights=None, shard=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Vanilla softmax with an affine output layer (loss.py:9-48)."""
-    logits = features @ kernel + bias
-    return sparse_softmax_xent(logits, labels, weights), {"logits": logits, "labels": labels}
+    logits = _local(features, shard) @ kernel + bias
+    return (sparse_softmax_xent(logits, labels, weights, shard),
+            {"logits": logits, "labels": labels})
 
 
 def asoftmax_phi(cos: torch.Tensor, m: int) -> torch.Tensor:
@@ -107,34 +160,38 @@ def asoftmax_phi(cos: torch.Tensor, m: int) -> torch.Tensor:
     raise NotImplementedError("[ERROR] m=%d is not supported." % m)
 
 
-def asoftmax_loss(features, labels, kernel, m: int, lam, weights=None):
+def asoftmax_loss(features, labels, kernel, m: int, lam, weights=None, shard=None):
     """Angular (Sphere) softmax (loss.py:51-169)."""
-    logits = _normalized_logits(features, kernel)
+    logits = _normalized_logits(features, kernel, shard)
     if m == 1:
-        return sparse_softmax_xent(logits, labels, weights), {"logits": logits, "labels": labels}
-    sel, fnorm, cos = _target_cos(logits, features, labels)
+        return (sparse_softmax_xent(logits, labels, weights, shard),
+                {"logits": logits, "labels": labels})
+    sel, fnorm, cos = _target_cos(logits, features, labels, shard)
     scaled = asoftmax_phi(cos, m) * fnorm
-    updated = _blend(logits, labels, sel, scaled, lam)
-    return sparse_softmax_xent(updated, labels, weights), {"logits": logits, "labels": labels}
+    updated = _blend(logits, labels, sel, scaled, lam, shard)
+    return (sparse_softmax_xent(updated, labels, weights, shard),
+            {"logits": logits, "labels": labels})
 
 
-def amsoftmax_loss(features, labels, kernel, m: float, lam, weights=None):
+def amsoftmax_loss(features, labels, kernel, m: float, lam, weights=None, shard=None):
     """Additive-margin softmax: ||x|| (cos theta - m) (loss.py:172-257)."""
-    logits = _normalized_logits(features, kernel)
-    sel, fnorm, cos = _target_cos(logits, features, labels)
+    logits = _normalized_logits(features, kernel, shard)
+    sel, fnorm, cos = _target_cos(logits, features, labels, shard)
     scaled = (cos - m) * fnorm
-    updated = _blend(logits, labels, sel, scaled, lam)
-    return sparse_softmax_xent(updated, labels, weights), {"logits": logits, "labels": labels}
+    updated = _blend(logits, labels, sel, scaled, lam, shard)
+    return (sparse_softmax_xent(updated, labels, weights, shard),
+            {"logits": logits, "labels": labels})
 
 
-def arcsoftmax_loss(features, labels, kernel, m: float, lam, weights=None):
+def arcsoftmax_loss(features, labels, kernel, m: float, lam, weights=None, shard=None):
     """Additive angular margin (ArcFace): ||x|| cos(theta + m) (loss.py:260-355)."""
-    logits = _normalized_logits(features, kernel)
-    sel, fnorm, cos = _target_cos(logits, features, labels)
+    logits = _normalized_logits(features, kernel, shard)
+    sel, fnorm, cos = _target_cos(logits, features, labels, shard)
     sin = torch.sqrt(torch.clamp_min(1.0 - torch.square(cos), 1e-12))
     cos_m = cos * math.cos(m) - sin * math.sin(m)
     # theta + m > pi  <=>  cos theta < cos(pi - m): the monotone extension.
     phi = torch.where(cos > math.cos(math.pi - m), cos_m, -cos_m - 2.0)
     scaled = phi * fnorm
-    updated = _blend(logits, labels, sel, scaled, lam)
-    return sparse_softmax_xent(updated, labels, weights), {"logits": logits, "labels": labels}
+    updated = _blend(logits, labels, sel, scaled, lam, shard)
+    return (sparse_softmax_xent(updated, labels, weights, shard),
+            {"logits": logits, "labels": labels})

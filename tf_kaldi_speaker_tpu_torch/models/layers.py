@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce
+
 VAR2STD_EPSILON = 1e-12
 
 # tf.layers.batch_normalization default (the reference never overrides it);
@@ -73,12 +75,19 @@ class BatchNorm(nn.Module):
     it normalizes in that type, rounds to x's dtype, and updates the running statistics in
     place as ``r = momentum * r + (1 - momentum) * batch`` with the biased
     batch variance (not torch's BatchNorm convention, whose momentum is the
-    complement and whose running variance is unbiased)."""
+    complement and whose running variance is unbiased).
+
+    With ``group`` (the data group, set by ``parallel.shard_model``) the
+    batch is the global one, as under pjit: the per-channel sums of x and
+    x² and the row count are all-reduced over the group (a gradient
+    all-reduces back the same way), so every rank normalizes with, and
+    moves its running statistics by, the same global statistics."""
 
     def __init__(self, width: int, momentum: float = 0.99, epsilon: float = TF_BN_EPSILON):
         super().__init__()
         self.momentum = float(momentum)
         self.epsilon = float(epsilon)
+        self.group = None
         self.scale = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.register_buffer("mean", torch.zeros(width))
@@ -90,8 +99,15 @@ class BatchNorm(nn.Module):
             return (x - self.mean) * mul + self.bias
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
-        mean = torch.mean(xf, dim=dims)
-        var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
+        if self.group is None:
+            mean = torch.mean(xf, dim=dims)
+            var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
+        else:
+            c = xf.shape[-1]
+            sums = all_reduce(torch.cat([torch.sum(xf, dim=dims), torch.sum(xf * xf, dim=dims),
+                                         xf.new_full((1,), xf.numel() // c)]), self.group)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)

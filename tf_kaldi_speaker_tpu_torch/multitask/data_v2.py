@@ -10,9 +10,9 @@ and a one-pass sequential variant. ``num_total_phones`` comes from
 ``<ali_dir>/num_pdfs`` when present, else from Kaldi ``tree-info`` like the
 reference (:228-229).
 
-One card: the JAX sampler's ``length_seed`` (the multi-host length-draw
-stream) is not carried; each sampler draws its bucket lengths from its own
-``seed``, as the JAX sampler does when ``length_seed`` is None.
+``length_seed`` seeds the bucket-length stream apart from the sampling
+stream, so the data ranks of a multi-card run, each with its own ``seed``,
+draw the same lengths (from ``seed`` when None, as in JAX).
 """
 
 from __future__ import annotations
@@ -84,6 +84,7 @@ class RandomChunkSamplerV2:
         shuffle: bool = True,
         seed: int = 0,
         num_buckets: int = 8,
+        length_seed: Optional[int] = None,
         group: int = 1,
     ):
         self.data_dir, self.ali_dir = data_dir, ali_dir
@@ -100,8 +101,9 @@ class RandomChunkSamplerV2:
         self.buckets = bucket_lengths(min_len, max_len, num_buckets)
         self.shuffle = shuffle
         self.rng = random.Random(seed)
-        # a separate stream for the bucket lengths (data/sampler.py)
-        self.length_rng = random.Random(seed)
+        # a separate stream for the bucket lengths, shared by the data ranks
+        # (data/sampler.py)
+        self.length_rng = random.Random(seed if length_seed is None else length_seed)
         # K-batch groups for single-dispatch training (see data/sampler.py)
         self.group = int(group)
         self.reader: Optional[FeatureReaderV2] = None
@@ -280,7 +282,8 @@ class SequentialChunkSamplerV2:
 class KaldiDataRandomQueueV2(PrefetchLoader):
     def __init__(self, data_dir, ali_dir, spklist, left_context, right_context,
                  num_parallel=2, max_qsize=10, num_speakers=64, num_segments=1,
-                 min_len=200, max_len=400, shuffle=True, seed=0, group=1):
+                 min_len=200, max_len=400, shuffle=True, seed=0, length_seed=None,
+                 group=1):
         _, _, spk2index = get_speaker_info(data_dir, spklist)
         self.num_total_speakers = len(spk2index)
         self.num_total_phones = get_num_phones(ali_dir)
@@ -289,7 +292,7 @@ class KaldiDataRandomQueueV2(PrefetchLoader):
             return RandomChunkSamplerV2(
                 data_dir, ali_dir, spklist, left_context, right_context,
                 num_speakers, num_segments, min_len, max_len, shuffle, worker_seed,
-                group=group,
+                length_seed=length_seed, group=group,
             )
 
         super().__init__(factory, num_parallel, max_qsize, base_seed=seed, finite=False)

@@ -1,9 +1,9 @@
 """Multitask trainer: joint speaker+phone training loop.
 
 Counterpart of ``tf_kaldi_speaker_tpu/multitask/trainer.py`` (reference
-model/multitask_v1/base_v1.py, ``BaseMT``) on one card, on the port's
-``Trainer`` (its optimizer, update, checkpoints, epoch driver and stop
-poll):
+model/multitask_v1/base_v1.py, ``BaseMT``) on one card or on a mesh of
+ranks, on the port's ``Trainer`` (its optimizer, data-parallel update,
+checkpoints, epoch loop and stop poll):
 
 - :meth:`TrainerMultiTask.train_step` is ``step_fn`` (``trainer.py:106-170``):
   float32, or with ``compute_dtype: bfloat16`` the parameters and features
@@ -23,9 +23,14 @@ poll):
   means, embeddings when asked, ``:549-593``), :meth:`predict_speaker` and
   :meth:`predict_phone` (edge tiling on the host, ``:595-623``).
 
-One process, one card: the JAX trainer's row padding and multi-host
-branches reduce to none; validation passes all-ones row weights, as the
-JAX valid step does for an unpadded batch.
+Over several data ranks (JAX ``:360-420``) each rank loads its share of
+``num_speakers_per_batch`` (seed ``seed + step0 + d * 7919``, one worker,
+the shared length seed) and draws its rows' phone masks from its own mask
+stream; both heads compute the global batch's losses from the gathered
+rows; validation gives each rank its row block of the same global batch,
+padded with weight-0 rows, the masks drawn over the padded batch as JAX
+draws them. The egs counters are summed over the data ranks and written by
+rank 0 (the JAX trainer writes process 0's own rows only).
 """
 
 from __future__ import annotations
@@ -37,10 +42,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..data import DataOutOfRange, device_prefetch
-from ..train.trainer import VALID_MARGIN_NEUTRAL, Trainer, _group_mean, l2_regularization
+from ..parallel.mesh import all_gather
+from ..train.trainer import VALID_MARGIN_NEUTRAL, Trainer, _group_mean
 from .common import make_phone_masks
 from .data_v2 import KaldiDataRandomQueueV2, KaldiDataSeqQueueV2
 from .model import MultitaskModel
@@ -48,25 +55,24 @@ from .model import MultitaskModel
 log = logging.getLogger("tfks_torch.trainer_mt")
 
 
-def _phn_accuracy(endpoints: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Frame accuracy over the phone subset, honoring the validity weight
-    (all-frames mode weights out padding frames; K-subset mode has none)."""
-    correct = (torch.argmax(endpoints["phn_logits"], dim=-1)
-               == endpoints["phn_labels_subset"]).to(torch.float32)
-    w = endpoints.get("phn_weight_subset")
-    if w is None:
-        return torch.mean(correct)
-    return torch.sum(correct * w) / torch.clamp_min(torch.sum(w), 1e-12)
-
-
-def _spk_accuracy(endpoints, spk, weights=None) -> torch.Tensor:
-    logits = endpoints.get("spk_logits")
+def _accuracy(model: MultitaskModel, endpoints: Dict[str, torch.Tensor], prefix: str,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``spk`` or ``phn`` head's accuracy over the rows its loss saw
+    (the global batch's, the phone subset's), honoring this rank's validity
+    weights of them, gathered as the head gathers its rows (the padded
+    rows; all-frames mode weights out padding frames; K-subset mode has
+    none)."""
+    logits = endpoints.get(prefix + "_logits")
     if logits is None:
-        return torch.zeros((), device=spk.device)
-    correct = (torch.argmax(logits, dim=-1) == spk).to(torch.float32)
+        return torch.zeros((), device=endpoints[prefix + "_labels"].device)
+    head = model.spk_softmax if prefix == "spk" else model.phn_softmax
+    correct = (head.argmax(logits) == endpoints[prefix + "_labels"]).to(torch.float32)
     if weights is None:
         return torch.mean(correct)
-    return torch.sum(weights * correct) / torch.clamp_min(torch.sum(weights), 1e-12)
+    mesh = head.mesh
+    if mesh is not None:
+        weights = all_gather(weights, mesh.data_group, mesh.data_rank, mesh.data_size)
+    return torch.sum(correct * weights) / torch.clamp_min(torch.sum(weights), 1e-12)
 
 
 class TrainerMultiTask(Trainer):
@@ -140,11 +146,10 @@ class TrainerMultiTask(Trainer):
             model, p, (feats, spk, phn, length, None if self.all_phone_frames else idx),
             {"step": self.step})
         loss = loss.to(torch.float32)
-        reg = l2_regularization(params, wreg, out_wreg)
+        reg = self._l2(params, wreg, out_wreg)
         with torch.no_grad():
-            spk_acc = _spk_accuracy(endpoints, spk)
-            phn_acc = (_phn_accuracy(endpoints) if "phn_logits" in endpoints
-                       else torch.zeros((), device=loss.device))
+            spk_acc = _accuracy(model, endpoints, "spk")
+            phn_acc = _accuracy(model, endpoints, "phn", endpoints.get("phn_weight_subset"))
         self._update(loss + reg, lr, frozen_stats)
         spk_loss = endpoints["spk_loss"].detach().to(torch.float32)
         phn_loss = endpoints["phn_loss"].detach().to(torch.float32)
@@ -158,13 +163,14 @@ class TrainerMultiTask(Trainer):
         accuracies and the speaker embeddings ``mu_zs`` of one batch
         (``valid_fn``, ``trainer.py:249-272``)."""
         margin = VALID_MARGIN_NEUTRAL.get(self.params.dict.get("spk_loss_type", "softmax"))
-        _, endpoints = self.network_model.eval()(
+        model = self.network_model.eval()
+        _, endpoints = model(
             features, spk, phn, length, None if self.all_phone_frames else idx, self.step,
             spk_margin_override=margin, aux_enabled=False, sample_weight=weights)
-        phn_acc = (_phn_accuracy(endpoints) if "phn_logits" in endpoints
-                   else torch.zeros((), device=spk.device))
         return (endpoints["spk_loss"], endpoints["phn_loss"],
-                _spk_accuracy(endpoints, spk, weights), phn_acc, endpoints["mu_zs"])
+                _accuracy(model, endpoints, "spk", weights),
+                _accuracy(model, endpoints, "phn", endpoints.get("phn_weight_subset")),
+                endpoints["mu_zs"])
 
     # ------------------------------------------------------------------
     # Loops
@@ -179,23 +185,22 @@ class TrainerMultiTask(Trainer):
         self._run_epoch(self.params.dict, groups, K, step0)
         self._dump_egs_stats()
 
-    def _random_queue_v2(self, data_dir, ali_dir, spklist, seed, group=1):
+    def _random_queue_v2(self, data_dir, ali_dir, spklist, step0, group=1):
+        """This rank's started V2 loader (``Trainer._loader_share``)."""
         cfg = self.params.dict
         return KaldiDataRandomQueueV2(
             data_dir, ali_dir, spklist,
-            num_parallel=int(cfg.get("num_parallel_datasets", 2)),
             max_qsize=int(cfg.get("max_queue_size", 10)),
-            num_speakers=int(cfg.get("num_speakers_per_batch", 64)),
             num_segments=int(cfg.get("num_segments_per_speaker", 1)),
-            seed=seed, group=group, **self._loader_kwargs()).start()
+            group=group, **self._loader_kwargs(),
+            **self._loader_share(step0, int(cfg.get("num_parallel_datasets", 2)))).start()
 
     def _mt_groups(self, data_dir, ali_dir, spklist, learning_rate, step0, steps_left, K):
         """The epoch's groups: one loader draw of K batches at one bucket
         length per group; the egs counted and the phone masks drawn on the
         host in group order, then (features, labels, ali, length, masks)
         moved to the card two groups ahead. Yields each group's metrics."""
-        loader = self._random_queue_v2(data_dir, ali_dir, spklist,
-                                       int(self.params.dict.get("seed", 0)) + step0, K)
+        loader = self._random_queue_v2(data_dir, ali_dir, spklist, step0, K)
         if self.speaker_egs is None:
             self.speaker_egs = np.zeros(self.num_speakers, np.int64)
             self.phone_egs = np.zeros(self.num_phones, np.int64)
@@ -214,8 +219,9 @@ class TrainerMultiTask(Trainer):
         stream = device_prefetch(host_groups(), self.device)
         try:
             for f, s, a, ln, idx in stream:
-                yield _group_mean([self.train_step(f[k], s[k], a[k], ln[k], idx[k],
-                                                   learning_rate) for k in range(K)])
+                yield self._global_mean(_group_mean([
+                    self.train_step(f[k], s[k], a[k], ln[k], idx[k], learning_rate)
+                    for k in range(K)]))
         finally:
             loader.stop()
             stream.close()
@@ -240,10 +246,18 @@ class TrainerMultiTask(Trainer):
             self.save(gstep)
 
     def _dump_egs_stats(self) -> None:
-        """Per-class training-example counts (base_v1.py:950-995), beside
-        the nnet dir."""
+        """Per-class training-example counts (base_v1.py:950-995), summed
+        over the data ranks, beside the nnet dir (rank 0)."""
+        totals = [self.speaker_egs, self.phone_egs]
+        if self.mesh.data_size > 1:
+            for i, counts in enumerate(totals):
+                t = torch.tensor(counts, device=self.mesh.flag_device(self.device))
+                dist.all_reduce(t, group=self.mesh.data_group)
+                totals[i] = t.cpu().numpy()
+        if self.mesh.rank != 0:
+            return
         root = os.path.dirname(self.model)
-        for name, counts in (("speaker_egs", self.speaker_egs), ("phone_egs", self.phone_egs)):
+        for name, counts in zip(("speaker_egs", "phone_egs"), totals):
             with open(os.path.join(root, name), "w") as f:
                 for i, c in enumerate(counts):
                     f.write("%d %d\n" % (i, c))
@@ -254,8 +268,7 @@ class TrainerMultiTask(Trainer):
         train_mt_lr_learning.py); writes ``learning_rate_tuning`` lines (k,
         lr, mean loss) beside the nnet dir and stops after a sweep whose
         mean loss is not finite or exceeds 1e4."""
-        loader = self._random_queue_v2(data_dir, ali_dir, spklist,
-                                       int(self.params.dict.get("seed", 0)))
+        loader = self._random_queue_v2(data_dir, ali_dir, spklist, 0)
 
         def host_batches():
             while True:
@@ -295,17 +308,26 @@ class TrainerMultiTask(Trainer):
             shuffle=not output_embeddings, **self._loader_kwargs()).start()
         spk_total, phn_total, count = 0.0, 0.0, 0
         embs, labs = [], []
+        n, d = self.mesh.data_size, self.mesh.data_rank
         try:
-            for _ in range(int(cfg.get("valid_max_iterations", 100))):
-                if self._should_stop():
+            for it in range(int(cfg.get("valid_max_iterations", 100))):
+                if self._should_stop(it, self._stop_poll_every):
                     break
                 feats, _vad, ali, length, labels, resample, _vp = loader.fetch()
                 b = labels.shape[0]
-                idx = self._masks(length, resample)
-                dev = [torch.from_numpy(a).to(self.device)
-                       for a in (feats, labels, ali, length, idx)]
-                spk_loss, phn_loss, _, _, emb = self.valid_step(
-                    *dev, torch.ones(b, device=self.device))
+                # pad to a multiple of the data ranks (the last row again,
+                # weight 0), draw the masks over the padded batch, then
+                # take this rank's block (JAX _shard_mt)
+                pad = -b % n
+                rows = [np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                        for a in (feats, labels, ali, length, resample)]
+                idx = self._masks(rows[3], rows[4])
+                weights = np.concatenate([np.ones(b, np.float32), np.zeros(pad, np.float32)])
+                blk = slice(d * (b + pad) // n, (d + 1) * (b + pad) // n)
+                dev = [torch.from_numpy(np.ascontiguousarray(a[blk])).to(self.device)
+                       for a in (*rows[:4], idx, weights)]
+                spk_loss, phn_loss, _, _, emb = self.valid_step(*dev)
+                emb = all_gather(emb, self.mesh.data_group, d, n)[:b]
                 # sample-count-weighted streaming means (partial tail
                 # batches must not get outsized weight)
                 spk_total += float(spk_loss) * b

@@ -2,7 +2,8 @@
 epoch loops (streaming loader or device pool), fine-tuning, the LR sweep,
 and the preemption poll.
 
-Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
+Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py``, on one card or
+on a mesh of ranks (one process a card, ``parallel/``):
 
 - :class:`XVectorModel` is ``XVectorModel`` (network + loss head, one
   module, one parameter tree in the JAX package's names).
@@ -50,12 +51,29 @@ Counterpart of ``tf_kaldi_speaker_tpu/train/trainer.py`` for one card:
   (:meth:`Trainer._make_model`) and shares the update
   (:meth:`Trainer._update`), the checkpoints and the epoch driver.
 
-Not ported, and refused where a config asks for it: ``ShardedDevicePool``
-(``pool_sharded``, multi-card, ROADMAP.md §1 item 7).
+Data parallelism (JAX: one pjit'd step over the ``data`` mesh axis,
+``:327-436``): the trainer's mesh (``parallel.make_mesh``, with
+``model_parallel``) places the model (``parallel.shard_model``). Each rank
+runs the forward on its own rows; every BatchNorm takes the global batch's
+statistics; the loss head computes the global batch's loss from the
+gathered embeddings; each rank's objective is 1/D of loss + L2 + penalty
+(D data ranks), so that the gradients, summed over the data group in one
+flat bucket, are the global batch's with the L2 term counted once;
+``clip_by_global_norm`` and the optimizer then run on the summed
+gradients, identically on every rank. The metrics are global means. The
+streaming epoch splits ``num_speakers_per_batch`` over the data ranks,
+each with its own loader (one worker, seed ``seed + step0 + d * 7919``)
+and the shared ``length_seed``; the device pool is sharded over the data
+ranks (``ShardedDevicePool``, ``:1032-1206``); validation gives each rank
+its row block of the same global batch, padded with weight-0 rows; rank 0
+alone writes checkpoints (the split kernel joined whole first) and
+summaries; the stop poll is collective. A world of one rank is the
+single-card path: no group, no collective.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import random
@@ -64,6 +82,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -71,10 +90,13 @@ from .. import convert
 from ..data import (DataOutOfRange, KaldiDataRandomQueue, KaldiDataSeqQueue,
                     KaldiMultiDataRandomQueue, KaldiMultiDataSeqQueue, bucket_lengths,
                     device_prefetch)
-from ..data.device_pool import DevicePool, gather_chunks
+from ..data.device_pool import DevicePool, ShardedDevicePool, gather_chunks
 from ..losses import STRUCTURAL_LOSSES, LossHead
 from ..models.tdnn import EntireNetwork
 from ..ops.cm_dequant import cm_dequantize
+from ..parallel import make_mesh, pad_batch_to_devices, shard_model, sharded_dim
+from ..parallel.mesh import reduce_replicated
+from ..parallel.sharding_rules import gather_named, gather_tree, split_tree
 from ..utils.summary import SummaryWriter, start_trace, stop_trace
 from . import checkpoints
 
@@ -217,6 +239,19 @@ def _to(aux: Optional[Dict[str, torch.Tensor]], device) -> Optional[Dict[str, to
     return None if aux is None else {k: v.to(device) for k, v in aux.items()}
 
 
+def _row_block(features, aux, labels, mesh):
+    """This data rank's rows of a global batch padded to a multiple of the
+    data ranks by repeating its last row (JAX ``_pad_rows``), with row
+    weights 0 on the padding: (features, aux, labels, weights)."""
+    b = features.shape[0]
+    blk = pad_batch_to_devices(b, mesh) // mesh.data_size
+    rows = torch.arange(mesh.data_rank * blk, (mesh.data_rank + 1) * blk)
+    weights = (rows < b).to(torch.float32)
+    rows = rows.clamp_max(b - 1)
+    return (features[rows], None if aux is None else {k: v[rows] for k, v in aux.items()},
+            labels[rows], weights)
+
+
 def _split_streams(features, labels):
     """A loader batch as (main features, aux dict or None, labels) with the
     features as tensors: the multi-stream loaders give a dict of streams,
@@ -230,7 +265,9 @@ def _split_streams(features, labels):
 class Trainer:
     """Owns model assembly, the train step, the data feeds and the
     checkpoint store. ``device`` is where everything runs (``cuda`` unless
-    the caller asks for ``cpu``); there is no fallback."""
+    the caller asks for ``cpu``); there is no fallback. The mesh spans the
+    process group's ranks (``parallel.initialize``), one rank without
+    one."""
 
     def __init__(self, params, model_dir: str, dim: Optional[int] = None,
                  num_speakers: Optional[int] = None, device="cuda"):
@@ -240,16 +277,20 @@ class Trainer:
         self.dim = dim
         self.num_speakers = num_speakers
         self.device = torch.device(device)
+        self.mesh = make_mesh(int(params.dict.get("model_parallel", 1)))
         self.network_model: Optional[XVectorModel] = None
         self.optimizer: Optional[Optimizer] = None
         self.loss_type: Optional[str] = None
         self.step = 0
         self._frozen: List[int] = []  # indices into the parameter list
         self._frozen_stats: List[torch.Tensor] = []  # BatchNorm buffers
-        self._device_pool: Optional[DevicePool] = None
+        self._device_pool = None  # DevicePool or ShardedDevicePool
         self._trace = None  # the torch.profiler window, while open
         self._stop_requested = False
         self._stop_acknowledged = False
+        # groups between collective stop polls (the JAX trainer's
+        # stop_poll_groups): each poll waits for every rank
+        self._stop_poll_every = int(params.dict.get("stop_poll_groups", 4))
 
     # ------------------------------------------------------------------
     # Build
@@ -287,7 +328,7 @@ class Trainer:
     def _init_state(self) -> None:
         cfg = self.params.dict
         model = self._make_model(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
-        self.network_model = model.to(self.device)
+        self.network_model = shard_model(model, self.mesh).to(self.device)
         self._params = dict(model.named_parameters())
         self.optimizer = Optimizer(cfg, list(self._params.values()))
         self.step = 0
@@ -298,11 +339,13 @@ class Trainer:
     def train_step(self, features: torch.Tensor, labels: torch.Tensor, lr: float,
                    aux_features: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a batch on the trainer's device; returns the step's
-        loss, L2 term and accuracy as 0-d float32 tensors (no host
-        synchronization). ``aux_features`` (multi-input models) are cast
-        like the features. One card pads no rows, so the JAX step's row
-        weights have no counterpart here."""
+        """One step on a batch on the trainer's device (this rank's rows of
+        the global batch); returns the step's loss, L2 term, penalty and
+        accuracy as 0-d float32 tensors (no host synchronization): this
+        rank's for the penalty, the global batch's for the rest.
+        ``aux_features`` (multi-input models) are cast like the features.
+        Training batches are never padded, so the JAX step's row weights
+        have no counterpart here."""
         cfg = self.params.dict
         wreg = float(cfg.get("weight_l2_regularizer", 0.0))
         out_wreg = float(cfg.get("output_weight_l2_regularizer", wreg))
@@ -318,7 +361,7 @@ class Trainer:
         frozen_stats = [b.clone() for b in self._frozen_stats]
         loss, endpoints = functional_call(model, p, (feats, labels), kwargs)
         loss = loss.to(torch.float32)
-        reg = l2_regularization(params, wreg, out_wreg)
+        reg = self._l2(params, wreg, out_wreg)
         # the self-attention pooling's head-diversity penalty (trainer.py:349)
         penalty = endpoints.get("attention_penalty")
         penalty = (torch.zeros((), device=loss.device) if penalty is None
@@ -326,23 +369,45 @@ class Trainer:
         total = loss + reg + penalty
         with torch.no_grad():
             logits = endpoints.get("logits")  # none for the triplet family
-            acc = (torch.zeros((), device=loss.device) if logits is None else
-                   torch.mean((torch.argmax(logits, dim=-1) == labels).to(torch.float32)))
+            acc = (torch.zeros((), device=loss.device) if logits is None else torch.mean(
+                (model.softmax.argmax(logits) == endpoints["labels"]).to(torch.float32)))
         self._update(total, lr, frozen_stats)
         return {"loss": loss.detach(), "regularization_loss": reg.detach(),
                 "penalty_loss": penalty.detach(), "accuracy": acc}
 
+    def _l2(self, params: Dict[str, torch.Tensor], wreg: float, out_wreg: float) -> torch.Tensor:
+        """:func:`l2_regularization` of the whole model: the blocks split
+        over the model group contribute their sum (a value every model
+        rank computes, whose gradient is each rank's block's own)."""
+        if self.mesh.model_size == 1:
+            return l2_regularization(params, wreg, out_wreg)
+        split = {k: v for k, v in params.items()
+                 if sharded_dim(convert.jax_name(k), self.mesh) is not None}
+        rest = {k: v for k, v in params.items() if k not in split}
+        return l2_regularization(rest, wreg, out_wreg) + reduce_replicated(
+            l2_regularization(split, wreg, out_wreg), self.mesh.model_group)
+
     def _update(self, total: torch.Tensor, lr: float, frozen_stats: List[torch.Tensor]) -> None:
-        """The step's update from the loss ``total``: its gradients, the
-        optimizer, ``params + (-lr * update)``, then the step count.
-        ``frozen_stats`` are the frozen BatchNorm statistics as they were
-        before the forward."""
+        """The step's update from the loss ``total`` (the global batch's):
+        its gradients, the optimizer, ``params + (-lr * update)``, then the
+        step count. ``frozen_stats`` are the frozen BatchNorm statistics as
+        they were before the forward. Over D data ranks each rank
+        differentiates total / D and the gradients are summed over the
+        data group in one flat bucket, so every rank applies the global
+        batch's update."""
         leaves = list(self._params.values())
+        if self.mesh.data_size > 1:
+            total = total / self.mesh.data_size
         # A parameter off the loss's graph (a pooling that taps an aux
         # stream only) gets a zero gradient, as under jax.grad.
         grads = [torch.zeros_like(p) if g is None else g for p, g in
                  zip(leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
         with torch.no_grad():
+            if self.mesh.data_size > 1:
+                bucket = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(bucket, group=self.mesh.data_group)
+                grads = [b.view_as(g) for b, g in
+                         zip(torch.split(bucket, [g.numel() for g in grads]), grads)]
             # Frozen gradients are zeroed before clipping and the optimizer
             # (the reference differentiates the trainable variables only),
             # frozen updates after it, and frozen statistics restored.
@@ -365,7 +430,9 @@ class Trainer:
     # Checkpoints
     # ------------------------------------------------------------------
     def state_tree(self) -> Dict[str, Any]:
-        """The train state as a JAX-layout tree of CPU tensors."""
+        """The train state as a JAX-layout tree of CPU tensors, the arrays
+        split over the model group joined whole (a collective: every rank
+        calls it)."""
         tree = convert.variables_of(self.network_model)
         names = list(self._params)
         opt = {}
@@ -376,22 +443,30 @@ class Trainer:
                 opt[key] = convert.tree_from_named(zip(names, value))["params"]
         tree["opt_state"] = opt
         tree["step"] = self.step
-        return tree
+        return gather_tree(tree, self.mesh, self.mesh.flag_device(self.device))
 
     def save(self, step: int) -> None:
-        checkpoints.save_checkpoint(
-            self.model, self.state_tree(), step,
-            keep_max=int(self.params.dict.get("keep_checkpoint_max", 0)))
+        """Write checkpoint ``step`` from rank 0 (JAX ``:718-725``), in the
+        one-card layout whatever the mesh."""
+        if self.mesh.rank != 0 and self.mesh.model_size == 1:
+            return
+        tree = self.state_tree()
+        if self.mesh.rank == 0:
+            checkpoints.save_checkpoint(
+                self.model, tree, step,
+                keep_max=int(self.params.dict.get("keep_checkpoint_max", 0)))
 
     def load(self, step: Optional[int] = None) -> int:
         """Restore the train state (the port's ``.pt`` or the JAX package's
-        ``.msgpack``); returns the restored checkpoint's step (0 if none)."""
+        ``.msgpack``), each rank its blocks of the split arrays; returns the
+        restored checkpoint's step (0 if none)."""
         if self.network_model is None:
             self.build("train", self.dim, None, self.num_speakers)
         try:
             raw, step = checkpoints.load_checkpoint(self.model, step)
         except FileNotFoundError:
             return 0
+        raw = split_tree(raw, self.mesh)
         model = self.network_model
         variables = {key: raw.get(key, {}) for key in ("params", "batch_stats", "loss_stats")}
         convert.load_variables(model, variables)
@@ -418,7 +493,7 @@ class Trainer:
         if noload_var_list:
             cfg = self.params.dict
             g = torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 1)
-            fresh = self._make_model(g).state_dict()
+            fresh = shard_model(self._make_model(g), self.mesh).state_dict()
             with torch.no_grad():
                 for name, t in self.network_model.state_dict().items():
                     if _matches(name, noload_var_list):
@@ -429,7 +504,7 @@ class Trainer:
         self.save(0)
 
     # ------------------------------------------------------------------
-    # Preemption-graceful stop (single process)
+    # Preemption-graceful stop
     # ------------------------------------------------------------------
     def request_stop(self) -> None:
         """Ask the loops to stop at the next group (or validation batch)
@@ -444,15 +519,32 @@ class Trainer:
 
     @property
     def stop_acknowledged(self) -> bool:
-        """True once a loop's poll has acted on a stop request; the
-        preemption exit keys on this, not on the raw flag."""
+        """True once a loop's poll has acted on a stop request (on every
+        rank: the poll is collective); the preemption exit keys on this, not
+        on the raw flag, so a rank whose SIGTERM came after the last poll
+        does not leave while the others go on."""
         return self._stop_acknowledged
 
-    def _should_stop(self) -> bool:
-        """Stop check at a group or batch boundary: one process, so the
-        poll acknowledges the flag as it stands (clearing the flag drops
-        the acknowledgement at the next poll)."""
-        self._stop_acknowledged = self._stop_requested
+    def _should_stop(self, tick: int = 0, every: int = 1) -> bool:
+        """Stop check at a group or batch boundary (JAX ``:677-713``). One
+        rank: the flag as it stands (clearing the flag drops the
+        acknowledgement at the next poll). More: every rank polls at the
+        same ticks (``tick % every == every - 1``; every rank runs the
+        loops in lockstep), where the flag is reduced with MAX over the
+        ranks, so all leave at the same boundary."""
+        if self._stop_acknowledged:
+            if self._stop_requested:
+                return True
+            # cleared to resume after a stop (mid-epoch --cont); a stop is
+            # acknowledged on every rank, so clearing is seen on all
+            self._stop_acknowledged = False
+        if self.mesh.world == 1:
+            self._stop_acknowledged = self._stop_requested
+            return self._stop_acknowledged
+        if tick % every != every - 1:
+            return False
+        if self.mesh.any(self._stop_requested, self.device):
+            self._stop_requested = self._stop_acknowledged = True
         return self._stop_acknowledged
 
     # ------------------------------------------------------------------
@@ -465,10 +557,6 @@ class Trainer:
         cfg = self.params.dict
         step0, steps_left, K = self._epoch_plan()
         if bool(cfg.get("device_pool", False)):
-            if bool(cfg.get("pool_sharded", False)):
-                raise NotImplementedError(
-                    "pool_sharded (ShardedDevicePool, multi-card) is not ported yet "
-                    "(ROADMAP.md §1 item 7)")
             groups = self._pool_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
         else:
             groups = self._stream_groups(data_dir, spklist, learning_rate, step0, steps_left, K)
@@ -489,12 +577,13 @@ class Trainer:
         """Drive an epoch's groups: ``_post_group`` after each, a stop poll,
         the profiler window flushed, a checkpoint at the step reached."""
         summary_steps = int(cfg.get("save_summary_steps", 0))
-        writer = SummaryWriter(self.model) if summary_steps else None
+        # one writer per run: rank 0's (the metrics are global)
+        writer = SummaryWriter(self.model) if summary_steps and self.mesh.rank == 0 else None
         t0 = time.time()
         try:
             for local_group, metrics in enumerate(groups):
                 self._post_group(cfg, writer, metrics, K, local_group, t0, step0)
-                if self._should_stop():
+                if self._should_stop(local_group, self._stop_poll_every):
                     break
         finally:
             groups.close()
@@ -510,24 +599,49 @@ class Trainer:
     def _group(self, batches, learning_rate: float) -> Dict[str, torch.Tensor]:
         """K steps on the group's batches, each a tuple (features, labels)
         or (codes, headers, labels); the metrics' mean."""
-        return _group_mean([
+        return self._global_mean(_group_mean([
             self.train_step_raw(*b, learning_rate) if len(b) == 3
-            else self.train_step(*b, learning_rate) for b in batches])
+            else self.train_step(*b, learning_rate) for b in batches]))
+
+    def _global_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The metrics' mean over the data ranks (one all-reduce)."""
+        if self.mesh.data_size == 1:
+            return metrics
+        keys = sorted(metrics)
+        values = torch.stack([metrics[k].to(torch.float64) for k in keys])
+        dist.all_reduce(values, group=self.mesh.data_group)
+        values = values / self.mesh.data_size
+        return {k: v.to(metrics[k].dtype) for k, v in zip(keys, values)}
+
+    def _loader_share(self, step0: int, num_parallel: int) -> Dict[str, Any]:
+        """This rank's part of a random loader (JAX ``:861-930``): its
+        share of ``num_speakers_per_batch``, seed ``seed + step0 + d *
+        7919`` (d the data rank); over more than one data rank one worker
+        (a deterministic batch order) and the shared length seed ``seed +
+        step0``, so every rank draws the same bucket lengths."""
+        cfg = self.params.dict
+        n, d = self.mesh.data_size, self.mesh.data_rank
+        speakers = int(cfg.get("num_speakers_per_batch", 64))
+        if speakers % n:
+            raise ValueError("num_speakers_per_batch=%d must divide across %d data ranks"
+                             % (speakers, n))
+        seed = int(cfg.get("seed", 0)) + step0
+        return dict(num_parallel=1 if n > 1 else num_parallel, num_speakers=speakers // n,
+                    seed=seed + d * 7919, length_seed=seed if n > 1 else None)
 
     def _random_queue(self, data_dir: str, spklist: str, step0: int,
                       **kw) -> KaldiDataRandomQueue:
-        """The config's started random-chunk loader, seeded ``seed + step0``."""
+        """The config's started random-chunk loader for this rank
+        (:meth:`_loader_share`)."""
         cfg = self.params.dict
         return KaldiDataRandomQueue(
             data_dir, spklist,
-            num_parallel=int(cfg.get("num_parallel_datasets", 4)),
             max_qsize=int(cfg.get("max_queue_size", 10)),
-            num_speakers=int(cfg.get("num_speakers_per_batch", 64)),
             num_segments=int(cfg.get("num_segments_per_speaker", 1)),
             min_len=int(cfg.get("min_segment_len", 200)),
             max_len=int(cfg.get("max_segment_len", 400)),
-            seed=int(cfg.get("seed", 0)) + step0,
             num_buckets=int(cfg.get("num_buckets", 8)),
+            **self._loader_share(step0, int(cfg.get("num_parallel_datasets", 4))),
             **kw,
         ).start()
 
@@ -559,8 +673,12 @@ class Trainer:
     def _pool_groups(self, data_dir, spklist, learning_rate, step0, steps_left, K):
         """The epoch's groups from the device pool (trainer.py:1032-1206):
         one bucket length and one ``sample_group`` per group; the chunks
-        are gathered and dequantized on the card. Yields each group's
-        metrics."""
+        are gathered and dequantized on the card. The pool is sharded over
+        the data ranks by default when there are more than one
+        (``pool_sharded``; a replicated pool cannot feed them, as in JAX
+        multi-host): each rank samples its rows from its own shard, never
+        padded. Every rank stages the same windows at the same groups and
+        draws the same lengths. Yields each group's metrics."""
         cfg = self.params.dict
         num_steps = int(cfg["num_steps_per_epoch"])
         num_speakers = int(cfg.get("num_speakers_per_batch", 64))
@@ -570,17 +688,23 @@ class Trainer:
             int(cfg.get("max_segment_len", 400)),
             int(cfg.get("num_buckets", 8)),
         )
-        if self._device_pool is None or self._device_pool.data_dir != data_dir:
-            if self._device_pool is not None:
-                self._device_pool.close()
-            self._device_pool = DevicePool(
+        n_data = self.mesh.data_size
+        sharded = bool(cfg.get("pool_sharded", n_data > 1))
+        if n_data > 1 and not sharded:
+            raise ValueError("a device_pool over %d data ranks requires pool_sharded" % n_data)
+        kind = ShardedDevicePool if sharded else DevicePool
+        pool = self._device_pool
+        if pool is None or pool.data_dir != data_dir or not isinstance(pool, kind):
+            if pool is not None:
+                pool.close()
+            kw = dict(num_shards=n_data, shard=self.mesh.data_rank) if sharded else {}
+            pool = self._device_pool = kind(
                 data_dir, spklist,
                 budget_bytes=int(float(cfg.get("pool_budget_mb", 12000)) * (1 << 20)),
                 device=self.device, seed=int(cfg.get("seed", 0)),
                 rotation_unit=str(cfg.get("pool_rotation_unit", "utts")),
-                chunk_frames=max(buckets),
+                chunk_frames=max(buckets), **kw,
             )
-        pool = self._device_pool
         # Rotation schedule: C coverage cycles of R windows per epoch, slot
         # boundaries at absolute epoch positions (see the JAX trainer).
         R = pool.rotation_rounds
@@ -593,7 +717,8 @@ class Trainer:
 
         cur_window = _window(step0 % num_steps)
         pool.stage(epoch * C * R + cur_window)
-        rng = random.Random(int(cfg.get("seed", 0)) + step0)
+        # rank-disjoint sampling streams; the length stream is shared
+        rng = random.Random(int(cfg.get("seed", 0)) + step0 + self.mesh.data_rank * 7919)
         length_rng = random.Random(int(cfg.get("seed", 0)) + step0)
         for local_group in range(steps_left // K):
             w = _window(step0 % num_steps + local_group * K)
@@ -615,7 +740,9 @@ class Trainer:
         log, summaries, checkpoint. Cadences are crossing checks (the step
         advances K at a time; the metrics at a crossing are the group
         mean); the global step is derived on the host, so a group without a
-        crossing does not wait for the device."""
+        crossing does not wait for the device. Rank 0 alone profiles, logs
+        and writes; a histogram of a split array is joined first, on every
+        rank."""
         gstep = step0 + (local_group + 1) * K
         local_step = local_group * K + K - 1
         show = int(cfg.get("show_training_progress", 100))
@@ -627,7 +754,8 @@ class Trainer:
             if not np.isfinite(loss):
                 raise FloatingPointError("Non-finite loss at step %d: %r" % (
                     gstep, {k: float(v) for k, v in metrics.items()}))
-        if profile_steps and local_group == 10 // K and self._trace is None:
+        if profile_steps and local_group == 10 // K and self._trace is None \
+                and self.mesh.rank == 0:
             self._trace = start_trace(self.device)
         if self._trace is not None and local_group >= (10 + profile_steps) // K + 1:
             stop_trace(self._trace, os.path.join(self.model, "profile"))
@@ -637,16 +765,22 @@ class Trainer:
             log.info("step %d: loss %.4f reg %.4f acc %.3f (%.2f steps/s)",
                      gstep, m["loss"], m["regularization_loss"], m["accuracy"],
                      (local_step + 1) / (time.time() - t0))
-        if writer and gstep // summary_steps > (gstep - K) // summary_steps:
-            # the JAX step's metrics, in the order jax.device_get gives them
-            m = dict(metrics, total_loss=metrics["loss"] + metrics["regularization_loss"]
-                     + metrics["penalty_loss"])
-            writer.scalars(gstep, {k: float(m[k]) for k in sorted(m)})
-            if cfg.get("save_histograms", True):
+        if summary_steps and gstep // summary_steps > (gstep - K) // summary_steps:
+            histograms = None
+            if cfg.get("save_histograms", True) and (writer or self.mesh.model_size > 1):
                 # per-variable histograms (reference trainer.py:431)
-                writer.histograms(gstep, {
-                    convert.jax_name(name): convert.to_jax_layout(name, p).numpy().ravel()
-                    for name, p in self._params.items()})
+                histograms = gather_named(
+                    {convert.jax_name(name): convert.to_jax_layout(name, p)
+                     for name, p in self._params.items()},
+                    self.mesh, self.mesh.flag_device(self.device))
+            if writer:
+                # the JAX step's metrics, in the order jax.device_get gives them
+                m = dict(metrics, total_loss=metrics["loss"] + metrics["regularization_loss"]
+                         + metrics["penalty_loss"])
+                writer.scalars(gstep, {k: float(m[k]) for k in sorted(m)})
+                if histograms is not None:
+                    writer.histograms(gstep, {k: v.numpy().ravel()
+                                              for k, v in histograms.items()})
         if save_every and gstep // save_every > (gstep - K) // save_every:
             self.save(gstep)
 
@@ -713,7 +847,14 @@ class Trainer:
         (reference trainer.py:592-706). Returns (loss, embeddings, labels).
         ``aux_data`` (name -> data dir; multi-input models) reads the aux
         streams beside the main one through the multi-stream loaders, as
-        the JAX ``TrainerMultiInput.valid`` does."""
+        the JAX ``TrainerMultiInput.valid`` does.
+
+        Over several data ranks (JAX ``:1319-1445``) every rank streams the
+        same batches (one loader worker), pads each to a multiple of the
+        data ranks with weight-0 rows (a structural loss trims instead) and
+        runs its row block; the head computes the global batch's loss, so
+        every rank sums the same mean. The embedding dump runs each batch
+        whole on every rank (an eval-mode forward is row by row)."""
         if batch_type not in ("softmax", "end2end"):
             raise ValueError("Unknown batch_type %s" % batch_type)
         if batch_type == "softmax" and self._valid_loss_func() == "e2e_valid_loss":
@@ -744,15 +885,17 @@ class Trainer:
             def random_queue(**kw):
                 return KaldiMultiDataRandomQueue(data_dir, aux_data, spklist, **kw)
         embeddings, labels_out = None, None
+        workers = 1 if self.mesh.world > 1 else 2
+        every = self._stop_poll_every
         if output_embeddings:
-            seq = seq_queue(num_parallel=2, batch_size=batch_size, shuffle=False,
+            seq = seq_queue(num_parallel=workers, batch_size=batch_size, shuffle=False,
                             **lengths).start()
             embs, labs = [], []
             try:
-                while True:
+                for tick in itertools.count():
                     # A stop can land mid-validation; poll at batch
                     # boundaries so the grace window is not spent here.
-                    if self._should_stop():
+                    if self._should_stop(tick, every):
                         break
                     features, aux, labels = _split_streams(*seq.fetch())
                     embs.append(self.embed(features, aux).cpu().numpy())
@@ -765,24 +908,43 @@ class Trainer:
             labels_out = np.concatenate(labs, 0) if labs else np.zeros((0,), np.int32)
 
         if batch_type == "softmax":
-            loader = seq_queue(num_parallel=2, batch_size=batch_size, shuffle=True,
+            loader = seq_queue(num_parallel=workers, batch_size=batch_size, shuffle=True,
                                **lengths).start()
         else:
             # speaker-major random batches (trainer.py:1395-1415)
+            rows = int(cfg["num_valid_speakers_per_batch"]) * int(
+                cfg["num_valid_segments_per_speaker"])
+            if rows % self.mesh.data_size:
+                # the structural valid losses cannot weight padded rows out
+                raise ValueError(
+                    "end2end validation batch (%d rows) must divide the %d data ranks; adjust "
+                    "num_valid_speakers_per_batch/num_valid_segments_per_speaker"
+                    % (rows, self.mesh.data_size))
             loader = random_queue(
-                num_parallel=2,
+                num_parallel=workers,
                 num_speakers=int(cfg["num_valid_speakers_per_batch"]),
                 num_segments=int(cfg["num_valid_segments_per_speaker"]),
                 min_len=lengths["min_len"], max_len=lengths["max_len"]).start()
+        structural = (self._valid_loss_func() or self.loss_type) in STRUCTURAL_LOSSES
         # Sample-count-weighted streaming mean: every real utterance counts once.
         total, count = 0.0, 0
         try:
-            for _ in range(int(cfg.get("valid_max_iterations", 100))):
-                if self._should_stop():
+            for it in range(int(cfg.get("valid_max_iterations", 100))):
+                if self._should_stop(it, every):
                     break
                 features, aux, labels = _split_streams(*loader.fetch())
                 b = features.shape[0]
-                loss = self.valid_loss(features, torch.from_numpy(labels), torch.ones(b), aux)
+                n = self.mesh.data_size
+                if structural and b % n:
+                    # trim the tail batch to a multiple of the data ranks
+                    b -= b % n
+                    if b == 0:
+                        continue
+                    features, labels = features[:b], labels[:b]
+                    aux = None if aux is None else {k: v[:b] for k, v in aux.items()}
+                features, aux, labels, weights = _row_block(
+                    features, aux, torch.from_numpy(labels), self.mesh)
+                loss = self.valid_loss(features, labels, weights, aux)
                 total += float(loss) * b
                 count += b
         except DataOutOfRange:

@@ -1,7 +1,8 @@
 """Multi-input trainer: main features + named auxiliary feature streams.
 
 Counterpart of ``tf_kaldi_speaker_tpu/train/trainer_mi.py`` (reference
-model/trainer_mi.py, ``TrainerMultiInput``) on one card. The network
+model/trainer_mi.py, ``TrainerMultiInput``) on one card or on a mesh of
+ranks, as :class:`Trainer`. The network
 receives a dict of aux streams (bottleneck features, ...) cut at the same
 start frame as the main chunk; ``aux_feature_dim`` (name -> width) must be
 configured, and the streams reach the network as the endpoints
@@ -11,7 +12,9 @@ configured, and the streams reach the network as the endpoints
   ``compute_dtype: bfloat16`` the main and aux streams are both cast; the
   attention penalty and the frozen masks are the base step's.
 - :meth:`train` runs one epoch in K-step groups from
-  ``KaldiMultiDataRandomQueue`` (seeded ``seed + step0``) through
+  ``KaldiMultiDataRandomQueue`` (seeded ``seed + step0``; over several
+  data ranks each its share of the speakers, seed ``seed + step0 + d *
+  7919``, one worker and the shared length seed, JAX ``:240-300``) through
   :func:`device_prefetch`, the aux streams moved with the main batch;
   progress, checkpoints and the stop poll keep ``Trainer``'s cadences. The
   JAX multi-input trainer writes no summaries and no profile, so neither
@@ -19,10 +22,6 @@ configured, and the streams reach the network as the endpoints
 - :meth:`valid` is ``Trainer.valid`` over the multi-stream loaders (softmax
   or ``end2end`` batches, margins neutralized, ``output_embeddings``).
 - :meth:`predict` is rank-checked as in JAX ``trainer_mi.py:452-471``.
-
-One process, one card: the JAX trainer's multi-host branches reduce to
-``nproc == 1``; a config that asks for a model-parallel mesh is refused
-(ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -44,9 +43,6 @@ class TrainerMultiInput(Trainer):
                  num_speakers: Optional[int] = None, device="cuda"):
         assert "aux_feature_dim" in params.dict, (
             "The dim of auxiliary features must be specified as a dict.")
-        if int(params.dict.get("model_parallel", 1)) > 1:
-            raise NotImplementedError(
-                "model_parallel (a multi-card mesh) is not ported yet (ROADMAP.md §1 item 7)")
         super().__init__(params, model_dir, dim=dim, num_speakers=num_speakers, device=device)
         self.aux_dims: Dict[str, int] = dict(params.aux_feature_dim)
 
@@ -77,14 +73,12 @@ class TrainerMultiInput(Trainer):
         names = sorted(aux_data)
         loader = KaldiMultiDataRandomQueue(
             data_dir, aux_data, spklist,
-            num_parallel=int(cfg.get("num_parallel_datasets", 4)),
             max_qsize=int(cfg.get("max_queue_size", 10)),
-            num_speakers=int(cfg.get("num_speakers_per_batch", 64)),
             num_segments=int(cfg.get("num_segments_per_speaker", 1)),
             min_len=int(cfg.get("min_segment_len", 200)),
             max_len=int(cfg.get("max_segment_len", 400)),
-            seed=int(cfg.get("seed", 0)) + step0,
             group=K,
+            **self._loader_share(step0, int(cfg.get("num_parallel_datasets", 4))),
         ).start()
 
         def host_groups():
@@ -96,10 +90,10 @@ class TrainerMultiInput(Trainer):
         stream = device_prefetch(host_groups(), self.device)
         try:
             for stacked in stream:
-                yield _group_mean([
+                yield self._global_mean(_group_mean([
                     self.train_step(stacked[0][k], stacked[-1][k], learning_rate,
                                     {n: stacked[1 + i][k] for i, n in enumerate(names)})
-                    for k in range(K)])
+                    for k in range(K)]))
         finally:
             loader.stop()
             stream.close()

@@ -90,7 +90,10 @@ Phases, each of which raises on failure:
    utterances) on the card, from the trained flagship's checkpoint in
    float32 (the third main path: the dequant and the pooling forward must
    launch); ``cli.score`` cosine, PLDA with ``--lda-dim 200``, PLDA with
-   ``--adapt-scp`` and cosine with AS-norm on every utterance pair; the
+   ``--adapt-scp`` and cosine with AS-norm on every utterance pair;
+   ``python -m tf_kaldi_speaker_tpu_torch.cli.extract`` in a process of its
+   own (float32, nothing in its environment about TF32) held to the same
+   x-vector and score bounds against the CPU chain (after the chain below); the
    card's uncompressed MFCC against numpy ``mfcc`` (float32 rounding), its
    VAD decisions against numpy's (equal); the same chain with ``--device
    cpu``, and the card against it: features within one quantization step,
@@ -177,7 +180,8 @@ Phases, each of which raises on failure:
    each stage's time; a profiler pass over 8 float32 steps; a float32 step,
    ``extract_mt`` and ``compute_loglike`` on the card against the CPU, each
    with a TF32-on and a bf16 control read against its bound (the step's
-   loss, embeddings and updates);
+   loss, embeddings and updates), and stage 5's log-likelihoods (its
+   ``compute_loglike`` process) against the same bound;
 27. multi-card training (``parallel/``) as 2 ranks on the one card, joined
    over gloo (NCCL refuses two ranks on one card; gloo runs the port's
    all-reduces on CUDA tensors): the flagship at full width (bf16, fused
@@ -193,7 +197,41 @@ Phases, each of which raises on failure:
    over the 2 ranks against the whole forward on the card at 3000 and 1111
    frames; ``cli.train`` under ``torchrun --nproc_per_node 1`` (a world of
    one, NCCL, the one-card path) for 8 steps; SIGTERM to rank 1 of a 2-rank
-   ``cli.train``: both exit 75 with one checkpoint at a multiple of 8.
+   ``cli.train``: both exit 75 with one checkpoint at a multiple of 8;
+28. the ASR decode recipe: the port's v3 ``run.sh`` stage 6 (its
+   ``run_decode.sh``) from 26's model with ``newarpa`` set, over a
+   word-loop HCLG of 667 words (each one phone's 3-state chain of 26's
+   transition model) and a bigram ARPA over them, on the first 2
+   validation utterances, whole: ``compute_loglike`` on the card, native
+   ``decode_faster`` with determinized lattices, ``lmrescore``,
+   ``compute_wer`` and the ``lattice_best_path`` sweep; what
+   ``tests/test_run_decode.py`` asserts of the outputs; every utterance
+   decoded by the native core (no Python fallback); no kernel launched
+   (path ``decode``); the native best path against the port's Python
+   oracle on the first utterance's first 40 frames; over the whole validation
+   split at full length, the CPU's log-likelihoods and a TF32-on
+   control's decoded by the same decoder against the card's (the words'
+   agreement, the best-path cost's relative gap against its bound, which
+   the control must exceed); the stage's seconds, and in
+   ``decode_faster``'s process the lattice decode's frames per second and
+   the determinization's share, and the sweep's seconds;
+29. the SRE recipe: ``tf_kaldi_speaker_tpu_torch/recipes/sre/v1/run.sh``
+   stages 2-8 from 25's stage-1 output (the same MFCC and VAD options) as
+   the SRE data dirs (swbd_sre the 80 background speakers' first 3
+   utterances, the unlabelled set 20 of their next ones, SRE10 and SRE16
+   the 10 evaluation speakers, the SRE16 trials split into two
+   languages), the shipped config at full width cut as 25's, the script
+   cut as ``tests/test_torch_sre_recipe.py`` cuts it (augmentation
+   skipped: no MUSAN or RIRs); every CLI's kernel launches
+   (``cm_dequantize`` must launch in ``cli.train``); what that test
+   asserts: both score files, the per-language splits, the calibrated
+   scores, Cllr and minDCF/actDCF; each stage's time; the path's shapes
+   replayed, as in 7.
+
+Phases 25 and then 29 run in a thread beside phase 21 (their work in their
+own processes; each path's shapes are replayed after all three end), so
+that the CLIs' interpreter start-ups overlap: the three recipes' stage
+times are read with another recipe running. Every other phase runs alone.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -1908,6 +1946,23 @@ def make_mfcc_host_seconds(run):
     raise AssertionError("make_mfcc logged no host seconds")
 
 
+@contextlib.contextmanager
+def tf32_on(torch):
+    """TF32 on in this process, also through a CLI's device set-up (which
+    turns it off: ``cli._frontend.no_tf32`` is a no-op meanwhile); off
+    again after."""
+    from tf_kaldi_speaker_tpu_torch.cli import _frontend
+
+    backends, no_tf32 = torch.backends, _frontend.no_tf32
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = True
+    _frontend.no_tf32 = lambda: None
+    try:
+        yield
+    finally:
+        _frontend.no_tf32 = no_tf32
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+
+
 def run_controls(torch, data, out, cpu_out, cpu_cosine, model, trained, root):
     """CONTROLS, each read as the card-vs-CPU check reads the sound chain:
     the raw-MFCC x-vectors (``cli.extract --cmvn --vad --device-pipe`` on
@@ -1920,21 +1975,17 @@ def run_controls(torch, data, out, cpu_out, cpu_cosine, model, trained, root):
     from tf_kaldi_speaker_tpu_torch.cli import extract, score
     from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
 
-    backends = torch.backends
     want = dict(read_vec_flt_scp(cpu_out["xvector_raw"] + ".scp"))
     readings = {}
     for control in CONTROLS:
         path = os.path.join(root, "wav_control", control)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tf32 = control == "tf32"
-        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = tf32
-        try:
+        with tf32_on(torch) if tf32 else contextlib.nullcontext():
             rc = extract.main(["--device-pipe", "--batch-size", "32", "--cmvn", "--vad",
                                "--device", "cuda", model if tf32 else trained,
                                "scp:" + os.path.join(out["mfcc"], "feats.scp"),
                                "ark,scp:%s.ark,%s.scp" % (path, path)])
-        finally:
-            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
         if rc != 0:
             raise RuntimeError("cli.extract (%s control) exited %d" % (control, rc))
         worst = min(cosine(e, want[k]) for k, e in read_vec_flt_scp(path + ".scp"))
@@ -1953,6 +2004,59 @@ def run_controls(torch, data, out, cpu_out, cpu_cosine, model, trained, root):
                  "caught" if worst < EMB_MIN_COSINE else "NOT caught", gap, SCORE_GAP,
                  "caught" if gap > SCORE_GAP else "NOT caught"))
     return readings
+
+
+def check_extract_subprocess(data, out, cpu_out, cpu_cosine, model, root):
+    """``python -m tf_kaldi_speaker_tpu_torch.cli.extract`` in a process of
+    its own on the float32 checkpoint (the raw MFCC, ``--cmvn --vad
+    --device-pipe``), nothing set in its environment that touches TF32 (so
+    PyTorch's defaults, which let cuDNN use TF32, hold until the CLI's
+    device set-up turns it off), held to the in-process check's bounds:
+    its x-vectors against the CPU chain's (1 - min cosine <= 1 -
+    EMB_MIN_COSINE) and their cosine scores against the CPU's (largest
+    difference over the spread <= SCORE_GAP). Returns the readings."""
+    from tf_kaldi_speaker_tpu_torch.cli import score
+    from tf_kaldi_speaker_tpu_torch.kio import read_vec_flt_scp
+
+    path = os.path.join(root, "wav_subprocess", "xvector_raw")
+    os.makedirs(os.path.dirname(path))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("NVIDIA_TF32_OVERRIDE", "TORCH_ALLOW_TF32_CUBLAS_OVERRIDE")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tf_kaldi_speaker_tpu_torch.cli.extract",
+                           "--device-pipe", "--batch-size", "32", "--cmvn", "--vad", model,
+                           "scp:" + os.path.join(out["mfcc"], "feats.scp"),
+                           "ark,scp:%s.ark,%s.scp" % (path, path)],
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError("cli.extract (subprocess) exited %d:\n%s"
+                           % (proc.returncode, proc.stderr[-4000:]))
+    want = dict(read_vec_flt_scp(cpu_out["xvector_raw"] + ".scp"))
+    got = dict(read_vec_flt_scp(path + ".scp"))
+    if sorted(got) != sorted(want):
+        raise AssertionError("cli.extract (subprocess): %d x-vectors of %d" % (len(got),
+                                                                               len(want)))
+    worst = min(cosine(e, want[k]) for k, e in got.items())
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = score.main(["--backend", "cosine", "--enroll-scp", path + ".scp",
+                         "--test-scp", path + ".scp", "--trials", data["trials"],
+                         "--scores", path + ".scores"])
+    if rc != 0:
+        raise RuntimeError("cli.score (subprocess x-vectors) exited %d" % rc)
+    gap = float(np.abs(np.loadtxt(path + ".scores", usecols=2) - cpu_cosine).max()
+                / np.ptp(cpu_cosine))
+    if not (worst >= EMB_MIN_COSINE and gap <= SCORE_GAP):
+        raise AssertionError("cli.extract in its own process (TF32 as PyTorch leaves it until "
+                             "the CLI's set-up) vs the CPU chain: x-vectors 1 - min cosine %.3g "
+                             "(bound %.3g), scores max |diff| / spread %.3g (bound %g)"
+                             % (1.0 - worst, 1.0 - EMB_MIN_COSINE, gap, SCORE_GAP))
+    print("cli.extract in its own process (python -m, float32 checkpoint, no TF32 setting in "
+          "its environment; %.2f s) vs the CPU chain: x-vectors 1 - min cosine %.3g (<= %.3g), "
+          "cosine scores max |diff| / spread %.3g (<= %g) ok: the CLI runs float32 without TF32"
+          % (wall, 1.0 - worst, 1.0 - EMB_MIN_COSINE, gap, SCORE_GAP))
+    return dict(one_minus_cosine=1.0 - worst, score_gap=gap, wall_s=wall)
 
 
 def batching_ab(torch, data, root):
@@ -2081,6 +2185,8 @@ def run_wav_to_score(torch, root, trained):
                  g["min_dcf08"], bounds["min_dcf08"], g["min_dcf10"], bounds["min_dcf10"]))
     controls = run_controls(torch, data, out, cpu_out, cpu_scores["cosine"][0], model, trained,
                             root)
+    subprocess_check = check_extract_subprocess(data, out, cpu_out, cpu_scores["cosine"][0],
+                                                model, root)
 
     hours = data["seconds"] / 3600.0
     mfcc_s = runs["make_mfcc"]["wall"]
@@ -2114,7 +2220,8 @@ def run_wav_to_score(torch, root, trained):
     summary = dict(times, mfcc_max_abs_err=mfcc_err, mfcc_not_bit_equal=mfcc_differ,
                    mfcc_card_vs_cpu=feat_gap, prepare_feats_card_vs_cpu=prep_gap,
                    vad_card_equals_cpu=vad_equal, emb_min_cosine=worst_cos, score_gaps=gaps,
-                   controls=controls, make_mfcc_batching_walls=batching)
+                   controls=controls, extract_subprocess=subprocess_check,
+                   make_mfcc_batching_walls=batching)
     return launches, shapes, summary, data
 
 
@@ -2377,26 +2484,50 @@ RECIPE_SCRIPT_CUTS = (("--min-num-utts 8", "--min-num-utts 2"),
 # run.sh's `$py` becomes this runner: python -m <module> in a fresh process,
 # which at its exit appends the process's kernel launch counts to a log
 LAUNCH_RUNNER = '''"""python -m MODULE ARGS..., then append this process's kernel launch
-and shape counts (zero where a wrapper was never imported) and its native
-reader's counts to the JSON-lines file named by TFKS_LAUNCH_LOG."""
+and shape counts (zero where a wrapper was never imported), its native
+reader's and WFST decoder's counts, its wall seconds and, for
+cli.decode_faster, the seconds spent in the functions TIMED names to the
+JSON-lines file named by TFKS_LAUNCH_LOG."""
 import atexit
+import importlib
 import json
 import os
 import runpy
 import sys
+import time
+
+T0 = time.perf_counter()
 
 WRAPPERS = {"cm_dequantize": ("tf_kaldi_speaker_tpu_torch.ops.cm_dequant", "cm_dequantize"),
             "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
                                      "masked_stats_pooling"),
             "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
                                               "masked_stats_pooling_backward")}
+# (module, class or None, function): each call's seconds summed under the
+# function's name, in whatever thread it runs
+TIMED = (("tf_kaldi_speaker_tpu_torch.backend.decoder", "WfstDecoder", "decode_lattice"),
+         ("tf_kaldi_speaker_tpu_torch.backend.lattice", None, "determinize_lattice"))
 MODULE = sys.argv[1]
+SECONDS = {}
+
+
+def timed(name, fn):
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            SECONDS[name] = SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    return call
 
 
 def dump():
     native = sys.modules.get("tf_kaldi_speaker_tpu_torch.kio.native_decode")
+    decoder = sys.modules.get("tf_kaldi_speaker_tpu_torch.backend.decoder")
     rec = {"module": MODULE, "launches": {}, "shapes": {},
-           "native": dict(native.counts) if native is not None else {}}
+           "native": dict(native.counts) if native is not None else {},
+           "decoder": dict(decoder.counts) if decoder is not None else {},
+           "wall": time.perf_counter() - T0, "seconds": SECONDS}
     for name, (mod, attr) in WRAPPERS.items():
         fn = getattr(sys.modules.get(mod), attr, None)
         rec["launches"][name] = fn.launches if fn is not None else 0
@@ -2407,6 +2538,10 @@ def dump():
 
 
 atexit.register(dump)
+for mod, cls, attr in TIMED if MODULE == "tf_kaldi_speaker_tpu_torch.cli.decode_faster" else ():
+    owner = importlib.import_module(mod)
+    owner = getattr(owner, cls) if cls else owner
+    setattr(owner, attr, timed(attr, getattr(owner, attr)))
 sys.argv = sys.argv[1:]
 runpy.run_module(MODULE, run_name="__main__", alter_sys=True)
 '''
@@ -2453,10 +2588,34 @@ def recipe_configs(root):
     return paths
 
 
-def run_stages(script, env, stages, d):
+class Beside(threading.Thread):
+    """``fn(*args)`` in a thread, beside the phases that follow: for a
+    phase whose work is its own processes (a recipe's stages), so that its
+    interpreters' start-up overlaps another such phase's. ``result()``
+    joins it and returns what ``fn`` returned, or raises what it raised."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._fn, self._args, self._out, self._err = fn, args, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = self._fn(*self._args)
+        except BaseException as e:  # noqa: BLE001 - raised again by result()
+            self._err = e
+
+    def result(self):
+        self.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def run_stages(script, env, stages, d, may_skip=()):
     """``script`` one stage at a time (``stage=stop_stage=N``), each stage's
-    output kept in ``d/stageN.log``; raises on a failed or skipped stage.
-    Returns the stages' seconds and outputs."""
+    output kept in ``d/stageN.log``; raises on a failed stage, or a skipped
+    one not in ``may_skip``. Returns the stages' seconds and outputs."""
     stage_s, logs = {}, {}
     for stage in stages:
         t0 = time.perf_counter()
@@ -2471,7 +2630,7 @@ def run_stages(script, env, stages, d):
         if proc.returncode != 0:
             print(proc.stdout[-4000:])
             raise RuntimeError("%s stage %d exited %d" % (script, stage, proc.returncode))
-        if "SKIPPING" in proc.stdout:
+        if "SKIPPING" in proc.stdout and stage not in may_skip:
             raise AssertionError("%s stage %d skipped its work" % (script, stage))
     return stage_s, logs
 
@@ -3800,9 +3959,12 @@ def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
     off) over ``scp``, held against a float32 CPU predict of the same
     checkpoint on the first MT_EXTRACT_CHECK utterances: 1 - cosine of the
     x-vectors <= 1 - EMB_MIN_COSINE, and the log-likelihoods' max |gap| over
-    the CPU matrix's spread <= MT_LOGLIKE_GAP. The controls (a card predict
-    with TF32 on, the checkpoint in bf16) are read against the same CPU
-    outputs and bounds. Returns the readings and the two runs' launches."""
+    the CPU matrix's spread <= MT_LOGLIKE_GAP; so are stage 5's
+    (``compute_loglike`` as run.sh runs it, a process of its own with
+    TF32 as PyTorch leaves it until the CLI's set-up). The controls (a card
+    predict with TF32 on, the checkpoint in bf16) are read against the same
+    CPU outputs and bounds. Returns the readings and the two runs'
+    launches.""" 
     from tf_kaldi_speaker_tpu_torch.cli import compute_loglike, extract_mt
     from tf_kaldi_speaker_tpu_torch.kio import read_mat_ark, read_mat_scp, read_vec_flt_ark
 
@@ -3816,6 +3978,7 @@ def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
         if r["rc"] != 0:
             raise RuntimeError("%s exited %d" % (name, r["rc"]))
     xv, ll = dict(read_vec_flt_ark(xv_ark)), dict(read_mat_ark(ll_ark))
+    stage5 = dict(read_mat_ark(os.path.join(out, "loglike.ark")))
     with open(prior_path) as f:
         log_prior = np.log(np.array(f.read().strip("[] \n").split(), np.float64))[None, :]
     cpu = _mt_trainer_at(torch, model, "cpu", "float32")
@@ -3824,6 +3987,7 @@ def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
     bf16 = _mt_trainer_at(torch, model, device, "float32").network_model.to(
         torch.bfloat16).eval()
     worst = {k: dict(xv=0.0, ll=0.0) for k in ("sound", "tf32", "bf16")}
+    stage5_gap = 0.0
     backends = torch.backends
     for _, (key, feats) in zip(range(MT_EXTRACT_CHECK), read_mat_scp(scp)):
         want_xv = cpu.predict_speaker(feats)
@@ -3839,6 +4003,7 @@ def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
             lengths = torch.full((1,), feats.shape[0], dtype=torch.int32, device=card.device)
             b_xv = bf16.predict_speaker(x, lengths).float().cpu().numpy()[0]
             b_ll = bf16.predict_phone(x).float().cpu().numpy()[0] - log_prior
+        stage5_gap = max(stage5_gap, float(np.max(np.abs(stage5[key] - want_ll))) / spread)
         for name, (e, m) in (("sound", (xv[key], ll[key])), ("tf32", tf32), ("bf16", (b_xv, b_ll))):
             worst[name]["xv"] = max(worst[name]["xv"], 1.0 - cosine(e, want_xv))
             worst[name]["ll"] = max(worst[name]["ll"],
@@ -3849,6 +4014,13 @@ def check_mt_outputs_against_cpu(torch, model, scp, prior_path, device="cuda"):
     if not worst["sound"]["ll"] <= MT_LOGLIKE_GAP:
         raise AssertionError("compute_loglike vs a CPU predict: max |gap| / spread %.3g > %g"
                              % (worst["sound"]["ll"], MT_LOGLIKE_GAP))
+    if not stage5_gap <= MT_LOGLIKE_GAP:
+        raise AssertionError("stage 5's compute_loglike (its own process) vs a CPU predict: "
+                             "max |gap| / spread %.3g > %g" % (stage5_gap, MT_LOGLIKE_GAP))
+    worst["stage5"] = dict(ll=stage5_gap)
+    print("stage 5's compute_loglike (a process of its own, as run.sh runs it) vs the CPU "
+          "predict of the first %d: log-likelihoods max |gap| over their spread %.3g (<= %g) ok"
+          % (MT_EXTRACT_CHECK, stage5_gap, MT_LOGLIKE_GAP))
     print("extract_mt and compute_loglike on the card (TF32 off, %d utterances, %.3f and %.3f "
           "s in this process) vs a CPU predict of the first %d: x-vectors 1 - min cosine %.3g "
           "(<= %.3g), log-likelihoods max |gap| over their spread %.3g (<= %g) ok"
@@ -3948,7 +4120,9 @@ def run_multitask_recipe(torch, root, mfcc_dir, device="cuda"):
                    mt_train_native=dict(native["train_mt"]),
                    mt_extract_one_minus_cosine=worst["sound"]["xv"],
                    mt_loglike_gap=worst["sound"]["ll"],
-                   mt_output_controls={k: v for k, v in worst.items() if k != "sound"}, **gaps)
+                   mt_stage5_loglike_gap=worst["stage5"]["ll"],
+                   mt_output_controls={k: v for k, v in worst.items()
+                                       if k not in ("sound", "stage5")}, **gaps)
     return dict(launches), summary
 
 
@@ -4521,6 +4695,465 @@ def run_data_parallel(torch, root, trained, train, valid, device="cuda", fresh_s
     return dict(launches), shapes, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the ASR decode recipe (v3 run.sh stage 6 -> run_decode.sh)
+# ---------------------------------------------------------------------------
+DECODE_SCRIPT = os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "fisher",
+                             "v3_multitask", "run_decode.sh")
+DECODE_CALL = "bash tf_kaldi_speaker_tpu_torch/recipes/fisher/v3_multitask/run_decode.sh"
+# The cut: stage 6 decodes the first DECODE_UTTS utterances of phase 26's
+# validation split (16 utterances of 699-897 frames), whole
+DECODE_UTTS = 2
+# the Python oracle's cut: the first decoded utterance's first frames
+DECODE_ORACLE_FRAMES = 40
+# the decode's best-path cost from the card's log-likelihoods against the
+# CPU's, relative (both decoded by the same native core, every utterance
+# of the validation split at full length): set from 32 readings in two
+# runs, sound 0 to 1.74e-7, the TF32-on control 2.06e-6 to 1.17e-4 (at most
+# 5.62e-5 to 1.17e-4 a run); the control must exceed it in every run
+DECODE_COST_GAP = 2e-6
+
+
+def write_decode_graph(d, mdl):
+    """A word-loop HCLG over the transition model ``mdl``: word w is phone
+    w's 3-state chain (the shape tests/test_decoder.py builds: the arc into
+    each state carries its forward transition-id, a self-loop its own),
+    with the topology's transition costs (-ln 0.75 a self-loop, -ln 0.25 a
+    forward) and a uniform unigram's ln 667 on each word's entry. Writes
+    ``d/lang/graph/{HCLG.fst,words.txt}``, ``d/lang/final.mdl`` (where
+    run_decode.sh looks) and a bigram ARPA over the words; returns (graph
+    dir, ARPA path, tid2pdf)."""
+    from tf_kaldi_speaker_tpu_torch.kio.fst import build_fst, write_fst
+    from tf_kaldi_speaker_tpu_torch.kio.transition_model import read_transition_model
+
+    tm = read_transition_model(mdl)
+    lang = os.path.join(d, "lang")
+    graph = os.path.join(lang, "graph")
+    os.makedirs(graph)
+    shutil.copyfile(mdl, os.path.join(lang, "final.mdl"))
+    self_cost, fwd_cost, word_cost = -np.log(0.75), -np.log(0.25), np.log(MT_PHONES)
+    arcs, state = [], 1
+    for w in range(1, MT_PHONES + 1):
+        prev = 0
+        for st in range(3):
+            self_tid = tm.state2id[(w - 1) * 3 + st + 1]
+            arcs.append((prev, self_tid + 1, w if st == 0 else 0,
+                         fwd_cost + (word_cost if st == 0 else 0.0), state))
+            arcs.append((state, self_tid, 0, self_cost, state))
+            prev, state = state, state + 1
+        arcs.append((prev, 0, 0, 0.0, 0))
+    write_fst(os.path.join(graph, "HCLG.fst"), build_fst(0, state, arcs, {0: 0.0}), "const")
+    words = ["w%d" % w for w in range(1, MT_PHONES + 1)]
+    with open(os.path.join(graph, "words.txt"), "w") as f:
+        f.write("<eps> 0\n" + "".join("%s %d\n" % (w, i + 1) for i, w in enumerate(words)))
+    # a small bigram: uniform unigrams with a backoff, each word's successor
+    # favoured
+    arpa = os.path.join(d, "lm_bigram.arpa")
+    uni = np.log10(1.0 / (len(words) + 1))
+    with open(arpa, "w") as f:
+        f.write("\\data\\\nngram 1=%d\nngram 2=%d\n\n\\1-grams:\n" % (len(words) + 2, len(words)))
+        f.write("-99\t<s>\t-0.30103\n%.5f\t</s>\n" % uni)
+        f.writelines("%.5f\t%s\t-0.30103\n" % (uni, w) for w in words)
+        f.write("\n\\2-grams:\n")
+        f.writelines("-0.30103\t%s %s\n" % (w, words[(i + 1) % len(words)])
+                     for i, w in enumerate(words))
+        f.write("\n\\end\\\n")
+    return graph, arpa, tm.tid2pdf[1:].astype(np.int32)
+
+
+def write_decode_data(d, valid_dir):
+    """``d/data/split/valid``: the first DECODE_UTTS utterances of
+    ``valid_dir`` (float ark + scp) and reference transcripts; returns
+    (data root, utt -> frames)."""
+    from tf_kaldi_speaker_tpu_torch.kio import ArkScpWriter, read_mat_scp
+
+    data = os.path.join(d, "data")
+    dev = os.path.join(data, "split", "valid")
+    os.makedirs(dev)
+    frames = {}
+    writer = ArkScpWriter("ark,scp:%s,%s" % (os.path.join(dev, "feats.ark"),
+                                             os.path.join(dev, "feats.scp")), kind="mat")
+    for _, (key, m) in zip(range(DECODE_UTTS), read_mat_scp(os.path.join(valid_dir,
+                                                                         "feats.scp"))):
+        writer.write(key, m)
+        frames[key] = m.shape[0]
+    writer.close()
+    with open(os.path.join(dev, "text"), "w") as f:
+        f.writelines("%s w1 w2\n" % k for k in frames)
+    return data, frames
+
+
+def check_decode_outputs(out, frames):
+    """What tests/test_run_decode.py asserts of the recipe's outputs, and
+    the rescored lattices."""
+    from tf_kaldi_speaker_tpu_torch.backend.lattice import read_lattice_ark
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_ark, read_vec_int_ark
+
+    utts = set(frames)
+    lls = dict(read_mat_ark(os.path.join(out, "loglike.ark")))
+    if set(lls) != utts or not all(m.shape == (frames[k], 3 * MT_PHONES) and np.isfinite(m).all()
+                                   for k, m in lls.items()):
+        raise AssertionError("loglike.ark: %s" % {k: m.shape for k, m in lls.items()})
+    words = dict(read_vec_int_ark(os.path.join(out, "words.ark")))
+    if set(words) != utts or not all(np.all(v >= 1) and np.all(v <= MT_PHONES)
+                                     for v in words.values()):
+        raise AssertionError("words.ark: %s" % words)
+    ali = dict(read_vec_int_ark(os.path.join(out, "ali.ark")))
+    if any(len(ali[u]) != frames[u] for u in utts):
+        raise AssertionError("ali.ark: not one transition-id a frame")
+    with open(os.path.join(out, "text")) as f:
+        if {line.split()[0] for line in f if line.strip()} != utts:
+            raise AssertionError("text: the utterances differ")
+    with open(os.path.join(out, "wer")) as f:
+        wer_line = f.readline()
+    if not wer_line.startswith("%WER"):
+        raise AssertionError("wer: %r" % wer_line)
+    for name in ("lat.txt", "lat_rescored.txt"):
+        lats = dict(read_lattice_ark(os.path.join(out, name)))
+        if set(lats) != utts:
+            raise AssertionError("%s: %s" % (name, sorted(lats)))
+        for u in utts:
+            if len(lats[u].best_path(acoustic_scale=0.1)[1]) != frames[u]:
+                raise AssertionError("%s %s: the best path's alignment" % (name, u))
+    with open(os.path.join(out, "wer.best")) as f:
+        best = f.read()
+    if "best lmwt" not in best:
+        raise AssertionError("wer.best: %r" % best[-400:])
+    return wer_line.strip(), best.strip().splitlines()[-1]
+
+
+def decode_arks(graph, tid2pdf, arks):
+    """Each ark's utterances decoded by one native decoder (best path,
+    run_decode.sh's acwt/beam, decode_faster's max-active): {ark: {utt:
+    (words, cost)}}."""
+    from tf_kaldi_speaker_tpu_torch.backend.decoder import WfstDecoder
+    from tf_kaldi_speaker_tpu_torch.kio import read_mat_ark
+
+    dec = WfstDecoder(graph, tid2pdf, acoustic_scale=0.1, beam=13.0, max_active=7000)
+    out = {}
+    for name, ark in arks.items():
+        res = {k: dec.decode(m) for k, m in read_mat_ark(ark)}
+        out[name] = {k: (list(r.words), r.cost) for k, r in res.items()}
+    dec.close()
+    return out
+
+
+def run_decode_phase(torch, root, device="cuda"):
+    """Phase 28: the port's v3 run.sh stage 6 (run_decode.sh) on the card
+    from phase 26's model. Returns the path's launches and a summary."""
+    from tf_kaldi_speaker_tpu_torch.backend import decoder
+    from tf_kaldi_speaker_tpu_torch.cli import compute_loglike
+    from tf_kaldi_speaker_tpu_torch.kio import native_decode, read_mat_ark
+    from tf_kaldi_speaker_tpu_torch.kio.fst import read_fst
+
+    t_phase = time.perf_counter()
+    mt = os.path.join(root, "multitask")
+    model = os.path.join(mt, "exp", "mt_xvector")
+    d = os.path.join(root, "decode")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    lib = native_decode.build(source=native_decode.WFST_SOURCE)
+    build_s = time.perf_counter() - t0
+    graph, arpa, tid2pdf = write_decode_graph(d, os.path.join(mt, "tri5a_ali", "final.mdl"))
+    data, frames = write_decode_data(d, os.path.join(mt, "data", "split", "valid"))
+    fst = read_fst(os.path.join(graph, "HCLG.fst"))
+    print("decode (%s): the WFST core built by g++ in %.2f s -> %s; a word-loop HCLG of %d "
+          "words, %d states, %d arcs over phase 26's %d-pdf transition model; stage 6 decodes "
+          "phase 26's first %d validation utterances, whole: %s frames"
+          % (CARD, build_s, os.path.relpath(lib, ROOT), MT_PHONES, fst.num_states, fst.num_arcs,
+             3 * MT_PHONES, len(frames), sorted(frames.values())))
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    runner_py = ('py="python -m"', 'py="%s %s"' % (sys.executable, runner))
+    with open(DECODE_SCRIPT) as f:
+        text = f.read()
+    decode_sh = os.path.join(d, "run_decode.sh")
+    with open(decode_sh, "w") as f:
+        f.write(text.replace(*runner_py))
+    with open(MT_SCRIPT) as f:
+        text = f.read()
+    for old, new in (runner_py, (DECODE_CALL, "bash " + decode_sh)):
+        if old not in text:
+            raise AssertionError("the multitask run.sh no longer holds %r" % old)
+        text = text.replace(old, new)
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(text)
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=os.path.join(d, "exp"), model=model,
+               ali_dir=os.path.join(mt, "data", "fisher_ali"), graph_dir=graph, newarpa=arpa,
+               device=device, TFKS_LAUNCH_LOG=launch_log)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TFKS_DISABLE_NATIVE", None)
+    stage_s, logs = run_stages(patched, env, [6], d)
+    out = os.path.join(model, "decode_valid")
+    wer_line, best_line = check_decode_outputs(out, frames)
+
+    records = {}
+    with open(launch_log) as f:
+        for line in f:
+            rec = json.loads(line)
+            records[rec["module"].rsplit(".", 1)[-1]] = rec
+    launches = collections.Counter()
+    for rec in records.values():
+        launches.update(rec["launches"])
+    if sum(launches.values()):
+        raise AssertionError("the decode path launched %s" % dict(launches))
+    counts = records["decode_faster"]["decoder"]
+    if counts != {"native": len(frames)}:
+        raise AssertionError("decode_faster decoded %s (want every one of %d natively)"
+                             % (counts, len(frames)))
+    walls = {m: rec["wall"] for m, rec in records.items()}
+    spans = records["decode_faster"]["seconds"]
+    n_frames = sum(frames.values())
+
+    # the native best path against the port's Python oracle on a short cut
+    lls = dict(read_mat_ark(os.path.join(out, "loglike.ark")))
+    key = next(iter(frames))
+    short = lls[key][:DECODE_ORACLE_FRAMES]
+    dec = decoder.WfstDecoder(os.path.join(graph, "HCLG.fst"), tid2pdf, acoustic_scale=0.1,
+                              beam=13.0, max_active=7000)
+    t0 = time.perf_counter()
+    want = decoder.decode_faster_py(fst, short, tid2pdf, acoustic_scale=0.1, beam=13.0,
+                                    max_active=7000)
+    oracle_s = time.perf_counter() - t0
+    got = dec.decode(short)
+    dec.close()
+    if not (list(got.words) == list(want.words) and list(got.alignment) == list(want.alignment)
+            and got.partial == want.partial
+            and abs(got.cost - want.cost) <= 1e-3 * max(1.0, abs(want.cost))):
+        raise AssertionError("native vs the Python oracle on %s[:%d]: %s vs %s"
+                             % (key, DECODE_ORACLE_FRAMES, got, want))
+    print("decode: native best path on %s's first %d frames equals the port's decode_faster_py "
+          "(words %s, cost %.6f vs %.6f; the oracle %.2f s) ok"
+          % (key, DECODE_ORACLE_FRAMES, list(want.words), got.cost, want.cost, oracle_s))
+
+    # the card's log-likelihoods against the CPU's (and a TF32-on
+    # control's) over the whole validation split, at full length
+    prior = os.path.join(model, "prior.vec")
+    scp = "scp:" + os.path.join(mt, "data", "split", "valid", "feats.scp")
+    arks = {name: os.path.join(d, "loglike_%s.ark" % name) for name in ("card", "cpu", "tf32")}
+    for name, dev in (("card", device), ("cpu", "cpu"), ("tf32", device)):
+        with tf32_on(torch) if name == "tf32" else contextlib.nullcontext():
+            r = drive(torch, compute_loglike.main, ["--device", dev, "--prior", prior, model, scp,
+                                                    "ark:" + arks[name]])
+        if r["rc"] != 0:
+            raise RuntimeError("compute_loglike (%s) exited %d" % (name, r["rc"]))
+    decoded = decode_arks(os.path.join(graph, "HCLG.fst"), tid2pdf, arks)
+    readings = {}
+    for name in ("card", "tf32"):
+        gaps = [abs(decoded[name][k][1] - c) / abs(c) for k, (_, c) in decoded["cpu"].items()]
+        same = sum(decoded[name][k][0] == w for k, (w, _) in decoded["cpu"].items())
+        readings[name] = dict(cost_gaps=gaps, words_agree=same / len(gaps))
+    sound, tf32 = readings["card"], readings["tf32"]
+    n_utts = len(sound["cost_gaps"])
+    print("decode of the card's log-likelihoods vs the CPU's (%s; one native decoder, %d "
+          "utterances at full length): words agree on %.0f%%, relative best-path cost gaps %s "
+          "(bound %g); control tf32: words agree on %.0f%%, gaps %s"
+          % (CARD, n_utts, 100 * sound["words_agree"], ["%.3g" % g for g in sound["cost_gaps"]],
+             DECODE_COST_GAP, 100 * tf32["words_agree"], ["%.3g" % g for g in tf32["cost_gaps"]]))
+    if not max(sound["cost_gaps"]) <= DECODE_COST_GAP:
+        raise AssertionError("decode of the card's log-likelihoods vs the CPU's: relative "
+                             "best-path cost gaps up to %g > %g"
+                             % (max(sound["cost_gaps"]), DECODE_COST_GAP))
+    if device != "cpu" and not max(tf32["cost_gaps"]) > DECODE_COST_GAP:
+        raise AssertionError("the TF32-on control's relative best-path cost gaps, at most %g, "
+                             "sit within the bound %g: the bound does not catch TF32"
+                             % (max(tf32["cost_gaps"]), DECODE_COST_GAP))
+
+    lat_s, det_s = spans["decode_lattice"], spans["determinize_lattice"]
+    times = dict(stage6_s=stage_s[6], decode_faster_s=walls["decode_faster"], frames=n_frames,
+                 lattice_s=lat_s, determinize_s=det_s, frames_per_s=n_frames / lat_s,
+                 frames_per_s_determinized=n_frames / (lat_s + det_s),
+                 determinize_share=det_s / (lat_s + det_s), lmrescore_s=walls["lmrescore"],
+                 sweep_s=walls["lattice_best_path"], compute_loglike_s=walls["compute_loglike"],
+                 wfst_build_s=build_s, oracle_s=oracle_s)
+    print("decode stage times (%s): stage 6 %.2f s; decode_faster %.2f s (its process); in it, "
+          "%d frames' lattice decode (the native search and the lattice) %.2f s = %.1f frames/s, "
+          "their determinization %.2f s (%.1f%% of the two; %.1f frames/s with it); lmrescore "
+          "%.2f s; the lattice_best_path sweep %.2f s; compute_loglike %.2f s; %s; %s; the phase "
+          "%.2f s"
+          % (CARD, stage_s[6], walls["decode_faster"], n_frames, lat_s, times["frames_per_s"],
+             det_s, 100 * times["determinize_share"], times["frames_per_s_determinized"],
+             walls["lmrescore"], walls["lattice_best_path"], walls["compute_loglike"], wer_line,
+             best_line, time.perf_counter() - t_phase))
+    summary = dict(decode_times=times, decode_decoder_counts=counts, decode_wer=wer_line,
+                   decode_best=best_line, decode_card_vs_cpu=sound, decode_tf32_control=tf32)
+    return dict(launches), summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the SRE recipe (tf_kaldi_speaker_tpu_torch/recipes/sre/v1/run.sh)
+# ---------------------------------------------------------------------------
+SRE_SCRIPT = os.path.join(ROOT, "tf_kaldi_speaker_tpu_torch", "recipes", "sre", "v1", "run.sh")
+SRE_CONF = os.path.join(ROOT, "recipes", "sre", "v1", "nnet_conf", "tdnn_amsoftmax_m0.15.json")
+# the shipped config at full width, cut as the Fisher phase cuts its own
+SRE_CUTS = dict(FISHER_CUTS, num_parallel_datasets=4)
+# swbd_sre: each background speaker's first 3 utterances (stage 5's
+# extraction of all 8 took 83.9 s); the stages start at 2 from the Fisher
+# phase's stage 1, as phase 26's do (the SRE stage 1, 12 interpreters,
+# took 99.9 s)
+SRE_TRAIN_UTTS = 3
+# tests/test_torch_sre_recipe.py's cuts of the script (80 training speakers)
+SRE_SCRIPT_CUTS = (("--min-len 200 --min-num-utts 8", "--min-len 30 --min-num-utts 2"),
+                   ("--valid-speakers 200 --valid-utts 5", "--valid-speakers 2 --valid-utts 2"),
+                   ("--lda-dim 150", "--lda-dim 8"))
+
+
+def write_sre_tree(root, fisher_data):
+    """The SRE data dirs from the Fisher phase's 8 kHz corpus and its
+    stage-1 output (the SRE recipe's stage 1 runs make_mfcc and compute_vad
+    with the same options): each set's wav.scp and utt2spk, and in its
+    mfcc/ the Fisher MFCC's feats.scp, vad.scp, utt2num_frames, utt2spk
+    and spk2utt rows of its utterances (the arks in place). swbd_sre: the
+    80 background speakers' first SRE_TRAIN_UTTS utterances; sre16_major
+    (unlabelled, for the adaptation): the next utterance of 20 of them;
+    sre10_{enroll,test} and sre16_{enroll,test}: the 10 evaluation
+    speakers' 3 + 3 utterances and their trials, sre16_test's split by the
+    test speaker into tgl (the first 5) and yue. Returns the data root and
+    the trial counts."""
+    data = os.path.join(root, "data")
+
+    def rows(name, fname):
+        with open(os.path.join(fisher_data, name, *fname)) as f:
+            return {line.split()[0]: line for line in f}
+
+    def write_set(name, src, utts):
+        wavs = rows(src, ["wav.scp"])
+        mfcc = os.path.join(data, name, "mfcc")
+        os.makedirs(mfcc)
+        with open(os.path.join(data, name, "wav.scp"), "w") as f:
+            f.writelines(wavs[u] for u in utts)
+        for fname in ("feats.scp", "vad.scp", "utt2num_frames", "utt2spk"):
+            table = rows(src, ["mfcc", fname])
+            with open(os.path.join(mfcc, fname), "w") as f:
+                f.writelines(table[u] for u in utts)
+        shutil.copyfile(os.path.join(mfcc, "utt2spk"), os.path.join(data, name, "utt2spk"))
+        spk2utt = collections.OrderedDict()
+        for u in utts:
+            spk2utt.setdefault(u.split("_")[0], []).append(u)
+        with open(os.path.join(mfcc, "spk2utt"), "w") as f:
+            f.writelines("%s %s\n" % (spk, " ".join(us)) for spk, us in spk2utt.items())
+
+    background = sorted(rows("train_background", ["wav.scp"]))
+    write_set("swbd_sre", "train_background",
+              [u for u in background if int(u.split("_utt")[1]) < SRE_TRAIN_UTTS])
+    write_set("sre16_major", "train_background",
+              [u for u in background if int(u.split("_utt")[1]) == SRE_TRAIN_UTTS][:20])
+    enroll, test = sorted(rows("enroll", ["wav.scp"])), sorted(rows("test", ["wav.scp"]))
+    with open(os.path.join(fisher_data, "test", "trials")) as f:
+        trials = f.readlines()
+    eval_spks = sorted({u.split("_")[0] for u in enroll})
+    tgl = set(eval_spks[:len(eval_spks) // 2])
+    for corpus in ("sre10", "sre16"):
+        write_set(corpus + "_enroll", "enroll", enroll)
+        write_set(corpus + "_test", "test", test)
+        with open(os.path.join(data, corpus + "_test", "trials"), "w") as f:
+            f.writelines(trials)
+    for lang, keep in (("tgl", lambda spk: spk in tgl), ("yue", lambda spk: spk not in tgl)):
+        with open(os.path.join(data, "sre16_test", "trials_" + lang), "w") as f:
+            f.writelines(t for t in trials if keep(t.split()[1].split("_")[0]))
+    return data, dict(trials=len(trials), tgl=sum(t.split()[1].split("_")[0] in tgl
+                                                  for t in trials))
+
+
+def check_sre_outputs(exp, logs, counts):
+    """What tests/test_torch_sre_recipe.py asserts of the recipe's outputs."""
+    out = "".join(logs.values())
+    if "SKIPPING augmentation" not in logs[2]:
+        raise AssertionError("stage 2 did not skip the augmentation")
+    for name in ("scores_sre10.txt", "scores_sre16.txt"):
+        if not os.path.getsize(os.path.join(exp, name)):
+            raise AssertionError("%s is empty" % name)
+    if "[tgl]" not in out or "[yue]" not in out:
+        raise AssertionError("stage 7 reported no per-language split")
+    for lang, n in (("tgl", counts["tgl"]), ("yue", counts["trials"] - counts["tgl"])):
+        with open(os.path.join(exp, "scores_sre16.txt." + lang)) as f:
+            if len(f.read().splitlines()) != n:
+                raise AssertionError("scores_sre16.txt.%s: not %d lines" % (lang, n))
+    with open(os.path.join(exp, "scores_sre16_cal.txt")) as f:
+        if len(f.read().splitlines()) != counts["trials"] or "calibration: llr =" not in out:
+            raise AssertionError("stage 8's calibrated scores")
+    m = re.search(r"eval Cllr raw-as-llr: ([\d.]+)\s+minCllr: ([\d.]+)\s+"
+                  r"Cllr calibrated: ([\d.]+)", out)
+    if not m:
+        raise AssertionError("stage 8 reported no Cllr")
+    cllr_raw, min_cllr, cllr_cal = map(float, m.groups())
+    dcfs = [tuple(map(float, x)) for x in re.findall(
+        r"p_target=\S+ c_miss=\S+ c_fa=\S+: minDCF ([\d.]+)\s+actDCF ([\d.]+)", out)]
+    if not (np.isfinite([cllr_raw, min_cllr, cllr_cal]).all() and cllr_raw >= min_cllr - 1e-6
+            and cllr_cal >= min_cllr - 1e-6 and len(dcfs) == 2
+            and all(np.isfinite(a) and a >= mn - 1e-6 for mn, a in dcfs)):
+        raise AssertionError("stage 8: Cllr %s, DCFs %s" % (m.groups(), dcfs))
+    eers = re.findall(r"EER[^0-9]*([0-9.]+)", logs[6] + logs[7])
+    return dict(cllr_raw=cllr_raw, min_cllr=min_cllr, cllr_calibrated=cllr_cal, dcfs=dcfs,
+                eers=eers)
+
+
+def run_sre_recipe(torch, root, device="cuda"):
+    """Phase 29: the port's SRE run.sh, stages 2-8 one at a time, on the
+    card, from the Fisher phase's stage-1 output. Returns the path's
+    launches and shapes and a summary."""
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "sre")
+    os.makedirs(d)
+    data, counts = write_sre_tree(d, os.path.join(root, "fisher", "data"))
+    runner = os.path.join(d, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    with open(SRE_SCRIPT) as f:
+        script = f.read()
+    for old, new in SRE_SCRIPT_CUTS + (('py="python -m"', 'py="%s %s"' % (sys.executable,
+                                                                          runner)),):
+        if old not in script:
+            raise AssertionError("the SRE run.sh no longer holds %r" % old)
+        script = script.replace(old, new)
+    patched = os.path.join(d, "run.sh")
+    with open(patched, "w") as f:
+        f.write(script)
+    with open(SRE_CONF) as f:
+        cfg_path = write_json(os.path.join(d, "sre.json"), dict(json.load(f), **SRE_CUTS))
+    exp = os.path.join(d, "exp")
+    launch_log = os.path.join(d, "launches.jsonl")
+    env = dict(os.environ, data_root=data, exp=exp, device=device, config=cfg_path,
+               TFKS_LAUNCH_LOG=launch_log)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TFKS_DISABLE_NATIVE", None)
+    c = FISHER_CORPUS
+    print("sre recipe (%s): the port's run.sh stages 2-8 from the Fisher phase's stage-1 output "
+          "(swbd_sre %d x %d, SRE10/SRE16 %d speakers' %d + %d utterances, %d trials, "
+          "sre16_major 20), config cuts %s, script %s"
+          % (CARD, c["background"], SRE_TRAIN_UTTS, c["eval_speakers"],
+             c["eval_utts"] // 2, c["eval_utts"] // 2, counts["trials"], SRE_CUTS,
+             ["%s -> %s" % cut for cut in SRE_SCRIPT_CUTS]))
+    stage_s, logs = run_stages(patched, env, range(2, 9), d, may_skip=(2,))
+    outputs = check_sre_outputs(exp, logs, counts)
+    launches, shapes, by_module, native = read_launch_log(launch_log)
+    if by_module["train"]["cm_dequantize"] <= 0:
+        raise AssertionError("sre cli.train launched cm_dequantize %s times"
+                             % by_module["train"]["cm_dequantize"])
+    fallbacks = {m: c["fallback"] for m, c in native.items() if c.get("fallback")}
+    if fallbacks:
+        raise AssertionError("sre recipe: numpy fallbacks by CLI %s" % fallbacks)
+    check_launched("sre recipe path (run.sh stages 2-8, every process)",
+                   dict(launches=dict(launches), shapes=shapes), ["cm_dequantize"])
+    print("sre recipe kernel launches by CLI: %s" % json.dumps(
+        {m: dict(c) for m, c in sorted(by_module.items()) if sum(c.values())}))
+    print("sre recipe stage times on the card (%s; each stage one bash run, every CLI its own "
+          "interpreter): %s s; EERs %s; Cllr raw %.4f, min %.4f, calibrated %.4f; the phase "
+          "%.2f s" % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, outputs["eers"],
+                      outputs["cllr_raw"], outputs["min_cllr"], outputs["cllr_calibrated"],
+                      time.perf_counter() - t_phase))
+    return dict(launches), shapes, dict(sre_stage_s=stage_s, sre_outputs=outputs)
+
+
+def run_fisher_then_sre(torch, root):
+    """Phases 25 and 29, one after the other (29 starts from 25's stage-1
+    output): what runs beside phase 21."""
+    return run_fisher_recipe(torch, root), run_sre_recipe(torch, root)
+
+
 def main():
     import logging
 
@@ -4626,7 +5259,12 @@ def main():
 
     aug_srcs, paths["augment"], aug_summary = run_augmentation(torch, WORK_DIR, wav_data)
     print("augmentation summary (%s): %s" % (CARD, json.dumps(aug_summary)))
+    # phases 21, 25 and 29 are chains of CLI processes: 25 and then 29 run
+    # beside 21
+    fisher_sre = Beside(run_fisher_then_sre, torch, WORK_DIR)
     paths["recipe"], recipe_shapes, recipe_summary = run_recipe(torch, WORK_DIR, aug_srcs)
+    ((paths["fisher"], fisher_shapes, fisher_summary),
+     (paths["sre"], sre_shapes, sre_summary)) = fisher_sre.result()
     replay_mix(torch, {k: v for k, v in recipe_shapes.items() if v}, rows, flush,
                prefix="recipe_mix_")
     print("recipe summary (%s): %s" % (CARD, json.dumps(recipe_summary)))
@@ -4639,7 +5277,6 @@ def main():
     paths["mi"], mi_shapes, mi_summary = run_multi_input(torch, WORK_DIR, trained, train, valid)
     replay_mix(torch, {k: v for k, v in mi_shapes.items() if v}, rows, flush, prefix="mi_mix_")
     print("multi-input summary (%s): %s" % (CARD, json.dumps(mi_summary)))
-    paths["fisher"], fisher_shapes, fisher_summary = run_fisher_recipe(torch, WORK_DIR)
     replay_mix(torch, {k: v for k, v in fisher_shapes.items() if v}, rows, flush,
                prefix="fisher_mix_")
     print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
@@ -4648,8 +5285,12 @@ def main():
     print("multitask recipe summary (%s): %s" % (CARD, json.dumps(mt_summary)))
     paths["dp"], dp_shapes, dp_summary = run_data_parallel(torch, WORK_DIR, trained, train, valid)
     replay_mix(torch, {k: v for k, v in dp_shapes.items() if v}, rows, flush, prefix="dp_mix_")
-    del flush
     print("data-parallel summary (%s): %s" % (CARD, json.dumps(dp_summary)))
+    paths["decode"], decode_summary = run_decode_phase(torch, WORK_DIR)
+    print("decode summary (%s): %s" % (CARD, json.dumps(decode_summary)))
+    replay_mix(torch, {k: v for k, v in sre_shapes.items() if v}, rows, flush, prefix="sre_mix_")
+    del flush
+    print("sre recipe summary (%s): %s" % (CARD, json.dumps(sre_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

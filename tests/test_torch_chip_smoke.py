@@ -466,14 +466,16 @@ def test_triplet_phase_configs(tmp_path):
 
 
 def test_phases_23_to_25_are_wired():
-    """The native reader, multi-input and Fisher phases run in main after
-    the triplet phase, in that order; each adds its path to the kernels
-    line (native_reader, mi, fisher), the multi-input and Fisher shapes
-    are replayed, and the docstring lists them."""
+    """The native reader and multi-input phases run in main after the
+    triplet phase, in that order, and the Fisher phase beside the recipe
+    phase before them; each adds its path to the kernels line
+    (native_reader, mi, fisher), the multi-input and Fisher shapes are
+    replayed after them, and the docstring lists them."""
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
-    calls = ["run_triplet(", "run_native_reader(", "run_multi_input(", "run_fisher_recipe(",
+    calls = ["Beside(run_fisher_then_sre,", "run_recipe(", "fisher_sre.result()", "run_triplet(",
+             "run_native_reader(", "run_multi_input(", 'prefix="fisher_mix_"',
              "print(json.dumps({\"kernels\""]
     at = [main_src.index(c) for c in calls]
     assert at == sorted(at)
@@ -627,7 +629,7 @@ def test_multitask_phase_is_wired_and_configured():
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
-    at = [main_src.index(c) for c in ("run_fisher_recipe(", "run_multitask_recipe(",
+    at = [main_src.index(c) for c in ("fisher_sre.result()", "run_multitask_recipe(",
                                       "print(json.dumps({\"kernels\"")]
     assert at == sorted(at)
     assert 'paths["mt"]' in main_src and "\n26. " in cs.__doc__
@@ -755,3 +757,75 @@ def test_mt_step_spread_on_cpu(tmp_path, monkeypatch, capsys):
     assert rows[0]["bf16"]["loss"] != rows[1]["bf16"]["loss"]
     out = capsys.readouterr().out
     assert out.count("mt step spread") == 2 + 4 and "2 readings, param_one_minus_cosine" in out
+
+
+def test_decode_and_sre_phases_are_wired():
+    """Phase 29 runs after phase 25 in the thread beside phase 21, and
+    phase 28 alone after the data-parallel phase; they add the paths
+    "decode" and "sre" to the kernels line, the SRE shapes are replayed,
+    the docstring lists both; the SRE phase cuts its script as
+    tests/test_torch_sre_recipe.py does, and stage 6 decodes whole
+    utterances, more than one, with the oracle on their first frames."""
+    import inspect
+
+    from test_torch_sre_recipe import SCRIPT_CUTS
+
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1]
+    main_src = main_src.split("if dp_spread:", 1)[1]
+    calls = ["Beside(run_fisher_then_sre,", "run_recipe(", "fisher_sre.result()",
+             'paths["dp"]', "run_decode_phase(", 'prefix="sre_mix_"',
+             "print(json.dumps({\"kernels\""]
+    at = [main_src.index(c) for c in calls]
+    assert at == sorted(at)
+    both = inspect.getsource(cs.run_fisher_then_sre)
+    assert both.index("run_fisher_recipe(") < both.index("run_sre_recipe(")
+    assert "Beside(" not in main_src.split("fisher_sre.result()", 1)[1]
+    for path in ("decode", "sre"):
+        assert 'paths["%s"]' % path in main_src
+    for n in (28, 29):
+        assert "\n%d. " % n in cs.__doc__
+    assert cs.SRE_SCRIPT_CUTS == SCRIPT_CUTS
+    assert cs.DECODE_ORACLE_FRAMES > 0 and cs.DECODE_UTTS > 1
+    assert not hasattr(cs, "DECODE_FRAMES")
+    assert cs.DECODE_CALL in open(cs.MT_SCRIPT).read()
+
+
+def test_decode_phase_on_cpu(tmp_path, monkeypatch):
+    """Phases 26 and 28 end to end at a small width with --device cpu (the
+    667 phones, so the 667-word loop): stage 6's outputs and checks on
+    whole utterances, native decodes only, no kernel launch, the decoder's
+    spans from its process, and the card-versus-CPU readings (0 on the
+    CPU) over the validation split."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    made = make_fake_data_dir(str(tmp_path / "mfcc"), num_speakers=10, utts_per_speaker=5,
+                              dim=23, min_len=210, max_len=260, seed=4, with_vad_ali=True,
+                              num_phones=3)
+    tiny = dict(json.load(open(cs.MT_CONF)), tdnn_layer_size=16, num_nodes_pooling_layer=24,
+                speaker_dim=16, phone_dim=16, phone_layer_size=[16] * 5,
+                num_speakers_per_batch=4, min_segment_len=64, max_segment_len=96)
+    conf = tmp_path / "tiny.json"
+    conf.write_text(json.dumps(tiny))
+    monkeypatch.setattr(cs, "MT_CONF", str(conf))
+    monkeypatch.setattr(cs, "MT_CUTS", dict(cs.MT_CUTS, num_steps_per_epoch=2,
+                                            num_parallel_datasets=2))
+    root = str(tmp_path)
+    _, patched, env, _, _ = cs.setup_multitask_recipe(root, made["data"], cs.MT_CUTS,
+                                                      device="cpu")
+    cs.run_stages(patched, env, range(2, 6), os.path.join(root, "multitask"))
+    launches, summary = cs.run_decode_phase(torch, root, device="cpu")
+    assert not sum(launches.values())
+    assert summary["decode_decoder_counts"] == {"native": cs.DECODE_UTTS}
+    times = summary["decode_times"]
+    assert 2 * 210 <= times["frames"] <= 2 * 260
+    assert times["lattice_s"] > 0 and times["determinize_s"] > 0
+    assert 0 < times["determinize_share"] < 1
+    sound = summary["decode_card_vs_cpu"]
+    assert len(sound["cost_gaps"]) == 16 and max(sound["cost_gaps"]) == 0
+    assert sound["words_agree"] == 1

@@ -115,8 +115,10 @@ def test_v3_script_calls_the_port_only():
     variables = re.compile(r"^(\w+)=\$\{", re.M)
     assert variables.findall(text) == variables.findall(jax_text) + ["device"]
     assert "config=${config:-recipes/fisher/v3_multitask/nnet_conf/mt_softmax.json}" in text
-    assert "run_decode.sh" not in text.split("=== stage 6")[1].split("exit 1")[0].replace(
-        "(recipes/fisher/v3_multitask/run_decode.sh)", "")
+    stage6 = text.split("=== stage 6")[1]
+    assert ('bash tf_kaldi_speaker_tpu_torch/recipes/fisher/v3_multitask/run_decode.sh'
+            in stage6 and '"$model" "$ali_dir" "${graph_dir:--}" "$data_root/split/valid"'
+            in stage6 and "exit 1" not in stage6)
     for old, _ in V3_SCRIPT_CUTS:
         assert old in text and old in jax_text
 
@@ -126,7 +128,8 @@ def test_v3_stages_1_to_5_on_cpu_and_stage_6_refuses(tmp_path):
     synthetic Kaldi alignment dir frame-aligned with its MFCC (2001 pdfs;
     stage 2 converts it with the native ali_to_pdf), then stages 2-5 with
     a tiny config; x-vectors, phone posteriors and log-likelihoods of the
-    pdf count's width come out. Stage 6 exits non-zero and says why."""
+    pdf count's width come out. Stage 6, the port's decode recipe with no
+    graph dir, pins the checkpoint and dumps the log-likelihoods again."""
     import json
 
     import numpy as np
@@ -190,4 +193,8 @@ def test_v3_stages_1_to_5_on_cpu_and_stage_6_refuses(tmp_path):
     for name in ("speaker_egs", "phone_egs"):
         assert (exp / "mt_xvector" / name).exists()
     proc = run(6, 6)
-    assert proc.returncode != 0 and "not ported" in proc.stdout
+    assert proc.returncode == 0, proc.stdout[-6000:]
+    assert "stopping after the loglike dump" in proc.stdout
+    dumped = dict(read_mat_ark(str(exp / "mt_xvector" / "decode_valid" / "loglike.ark")))
+    assert sorted(dumped) == sorted(valid)
+    assert all(m.shape == (frames[k], num_pdfs) for k, m in dumped.items())

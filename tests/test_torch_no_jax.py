@@ -4,7 +4,8 @@ imports, loads neither jax, jaxlib nor flax, nor any module of
 tf_kaldi_speaker_tpu, even with JAX_PLATFORMS set (the JAX package's
 __init__ imports jax when it is); no source file of the port names the JAX
 package in an import, no line of the port's recipe scripts calls one of its
-modules, and the native reader builds from the port's own source; and chip_smoke.py refuses to run (non-zero exit, no
+modules, and the native reader and WFST decoder build from the port's own
+sources; and chip_smoke.py refuses to run (non-zero exit, no
 result line) without a CUDA device or without the rest of the repository."""
 
 import ast
@@ -72,7 +73,17 @@ def test_port_imports_without_jax():
         "        'tf_kaldi_speaker_tpu_torch.parallel.distributed',\n"
         "        'tf_kaldi_speaker_tpu_torch.parallel.mesh',\n"
         "        'tf_kaldi_speaker_tpu_torch.parallel.sharding_rules',\n"
-        "        'tf_kaldi_speaker_tpu_torch.parallel.sequence_parallel'} <= set(mods), mods\n"
+        "        'tf_kaldi_speaker_tpu_torch.parallel.sequence_parallel',\n"
+        "        'tf_kaldi_speaker_tpu_torch.kio.fst',\n"
+        "        'tf_kaldi_speaker_tpu_torch.backend.decoder',\n"
+        "        'tf_kaldi_speaker_tpu_torch.backend.lattice',\n"
+        "        'tf_kaldi_speaker_tpu_torch.backend.wer',\n"
+        "        'tf_kaldi_speaker_tpu_torch.backend.arpa',\n"
+        "        'tf_kaldi_speaker_tpu_torch.backend.lmrescore',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.decode_faster',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.lattice_best_path',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.lmrescore',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.compute_wer'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"
@@ -107,29 +118,38 @@ def test_no_source_imports_the_jax_package(path):
     assert not bad, bad
 
 
-RECIPES = {"voxceleb": "voxceleb/v1", "fisher": "fisher/v1",
-           "fisher_v3_multitask": "fisher/v3_multitask"}
+RECIPES = {"voxceleb": "voxceleb/v1/run.sh", "fisher": "fisher/v1/run.sh",
+           "fisher_v3_multitask": "fisher/v3_multitask/run.sh",
+           "fisher_v3_multitask_decode": "fisher/v3_multitask/run_decode.sh",
+           "sre": "sre/v1/run.sh"}
 
 
 @pytest.mark.parametrize("recipe", sorted(RECIPES))
 def test_recipe_copies_call_the_port_only(recipe):
-    """Every line of a recipe copy that names a package calls a port CLI,
-    or, in an inline Python snippet, imports from the port."""
-    with open(os.path.join(PORT, "recipes", RECIPES[recipe], "run.sh")) as f:
+    """Every line of a recipe copy that names a package calls a port CLI or
+    runs a port recipe script, or, in an inline Python snippet, imports
+    from the port."""
+    with open(os.path.join(PORT, "recipes", RECIPES[recipe])) as f:
         lines = [line for line in f if "tf_kaldi_speaker_tpu" in line
                  and not line.lstrip().startswith("#")]
     assert lines and all("tf_kaldi_speaker_tpu_torch.cli." in line
                          or line.startswith("from tf_kaldi_speaker_tpu_torch.")
+                         or "bash tf_kaldi_speaker_tpu_torch/recipes/" in line
                          for line in lines)
     assert not [line for line in lines if "tf_kaldi_speaker_tpu." in line]
 
 
 def test_native_reader_is_built_from_the_port():
-    """The port's native reader compiles the port's own source into the
-    checkout's build/ and never loads the JAX package's library."""
+    """The port's native reader and WFST decoder compile the port's own
+    sources into the checkout's build/ and never load the JAX package's
+    libraries."""
+    from tf_kaldi_speaker_tpu_torch.backend import decoder
     from tf_kaldi_speaker_tpu_torch.kio import native_decode
 
     assert os.path.dirname(native_decode.SOURCE) == os.path.join(PORT, "native")
+    assert native_decode.WFST_SOURCE == os.path.join(PORT, "native", "wfst_decoder.cpp")
+    with open(decoder.__file__) as f:
+        assert "libwfstdecode" not in f.read()
     assert native_decode.BUILD_DIR == os.path.join(ROOT, "build", "tfks_torch_native")
     with open(native_decode.__file__) as f:
         assert "libarkdecode" not in f.read()

@@ -19,6 +19,9 @@
   and the valid loss.
 - SIGTERM to one rank of a 2-rank ``cli.train`` makes both exit 75 at one
   step, with one checkpoint.
+- The multitask epoch's ``speaker_egs`` / ``phone_egs`` files hold rank 0's
+  own counts on 2 ranks (a 1/nproc sample, as the JAX trainer's process 0
+  writes them) and the one rank's counts on 1 rank.
 
 Each worker is this file run as a script (``python test_torch_parallel.py
 <worker> <dir>``), one process a rank; every collective times out after
@@ -71,6 +74,11 @@ MT = dict(
     speaker_left_context=7, speaker_right_context=7, num_frames_per_utt=-1,
     optimizer="momentum", momentum=0.9, weight_l2_regularizer=1e-4, batchnorm_momentum=0.99)
 PHONES = 12
+# the multitask epoch whose egs counts are written (2 speakers a rank)
+MT_EPOCH = dict(MT, num_frames_per_utt=5, num_steps_per_epoch=4, steps_per_dispatch=2,
+                num_speakers_per_batch=4, num_segments_per_speaker=1, min_segment_len=48,
+                max_segment_len=48, show_training_progress=0, num_parallel_datasets=1,
+                max_queue_size=4, stop_poll_groups=1)
 F64 = dict(rtol=1e-10, atol=1e-10)
 # the single-card float32 tests' bounds (tests/test_torch_pool.py)
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -151,6 +159,25 @@ def data_parallel_runs(root, rank, world):
         out["mt", dtype] = _steps(t, mt, rank, world,
                                   lambda t, b: t.train_step(*[cast(a) for a in b], LR))
     return out
+
+
+def mt_egs_run(work):
+    """One multitask epoch; this rank's egs counters and the files rank 0
+    wrote (None on the other ranks)."""
+    from tf_kaldi_speaker_tpu_torch.multitask.trainer import TrainerMultiTask
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    root = os.path.join(work, "egs_w%d" % world)
+    t = _trainer(TrainerMultiTask, MT_EPOCH, root, "mt", num_phones=PHONES)
+    d = os.path.join(work, "mt_train")
+    t.train(d, os.path.join(d, "ali"), os.path.join(d, "spklist"), LR)
+    files = {}
+    if t.mesh.rank == 0:
+        files = {name: np.loadtxt(os.path.join(root, name), dtype=np.int64)[:, 1]
+                 for name in ("speaker_egs", "phone_egs")}
+    t.close()
+    return {"speaker_egs": t.speaker_egs.copy(), "phone_egs": t.phone_egs.copy(),
+            "files": files}
 
 
 def ragged_valid_loss(root):
@@ -279,6 +306,7 @@ def worker_port(work):
         lengths = json.load(f)
     feats = [np.load(os.path.join(work, "sp_%d.npy" % n)) for n in lengths]
     out["sp"] = sequence_parallel(os.path.join(work, "sp_model"), feats)
+    out["egs"] = mt_egs_run(work)
     torch.save(out, os.path.join(work, "port%d.pt" % rank))
 
 
@@ -471,6 +499,11 @@ def port_run(tmp_path_factory):
                                           jax_mesh(jax.devices()[:2]), node=jex.node))
     with open(os.path.join(work, "sp_feats.json"), "w") as fh:
         json.dump(lengths, fh)
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    make_fake_data_dir(os.path.join(work, "mt_train"), num_speakers=SPEAKERS,
+                       utts_per_speaker=4, dim=DIM, min_len=60, max_len=120, seed=9,
+                       with_vad_ali=True, num_phones=PHONES)
 
     results = spawn("port", work)
     _check_ok(results)
@@ -481,6 +514,7 @@ def port_run(tmp_path_factory):
                     for r in range(4)]
     ref["dp"] = data_parallel_runs(work, 0, 1)
     ref["valid"] = ragged_valid_loss(work)
+    ref["egs"] = mt_egs_run(work)
     return ranks, ref
 
 
@@ -500,6 +534,23 @@ def test_data_parallel_step_equals_one_rank(port_run, trainer, dtype):
     assert other["metrics"] == got["metrics"]
     for k, v in got["state"].items():
         np.testing.assert_array_equal(other["state"][k], v, err_msg=k)
+
+
+def test_multitask_egs_files_hold_rank_zero_counts(port_run):
+    """On 2 ranks each counts its own egs and rank 0 writes its local counts,
+    as the JAX trainer's process 0 does (a 1/nproc sample, not the sum);
+    on 1 rank the files hold that rank's counts."""
+    ranks, ref = port_run
+    r0, r1 = ranks[0]["egs"], ranks[1]["egs"]
+    assert ranks[1]["egs"]["files"] == {}
+    for name in ("speaker_egs", "phone_egs"):
+        np.testing.assert_array_equal(r0["files"][name], r0[name])
+        assert r1[name].sum() > 0
+        assert not np.array_equal(r0["files"][name], r0[name] + r1[name])
+        np.testing.assert_array_equal(ref["egs"]["files"][name], ref["egs"][name])
+    # 2 speakers a rank x 4 steps; 4 speakers x 4 steps on one rank
+    assert r0["speaker_egs"].sum() == r1["speaker_egs"].sum() == 8
+    assert ref["egs"]["speaker_egs"].sum() == 16
 
 
 def test_valid_loss_unbiased_by_rank_padding(port_run):
@@ -776,3 +827,9 @@ def test_speakers_not_dividing_model_parallel_raise(tmp_path):
 
 if __name__ == "__main__":
     WORKERS[sys.argv[1]](*sys.argv[2:])
+    # leave the process group before the interpreter's exit tears down
+    # gloo's threads (a rank can abort there, "terminate called without an
+    # active exception", when the host is loaded)
+    from tf_kaldi_speaker_tpu_torch import parallel
+
+    parallel.shutdown()

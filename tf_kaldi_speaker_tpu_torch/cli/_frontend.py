@@ -1,6 +1,7 @@
-"""Shared plumbing of the front-end CLIs (``make_mfcc``, ``compute_vad``,
-``prepare_feats``): the device check, batches in input order, and
-zero-padded host batches."""
+"""Shared plumbing of the CLIs: the device check every CLI that runs on a
+device goes through (:func:`device_or_raise`, which also turns TF32 off),
+and, for the front-end CLIs (``make_mfcc``, ``compute_vad``,
+``prepare_feats``), batches in input order and zero-padded host batches."""
 
 from __future__ import annotations
 
@@ -13,13 +14,24 @@ import torch
 T = TypeVar("T")
 
 
-def device_or_raise(name: str) -> torch.device:
-    """``torch.device(name)``; a CUDA device must exist, so a missing card
-    raises here instead of the work going on on the CPU."""
+def no_tf32() -> None:
+    """Float32 matmuls and cuDNN convolutions in float32. PyTorch lets cuDNN
+    use TF32 by default, whose 10-bit mantissas put a float32 model's
+    outputs outside the port's parity bounds against the CPU; the flags
+    are process-wide, so a CLI sets them and library classes do not."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def device_or_raise(name) -> torch.device:
+    """``torch.device(name)``, with TF32 off (:func:`no_tf32`); a CUDA
+    device must exist, so a missing card raises here instead of the work
+    going on on the CPU. Every CLI that runs on a device picks it here."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device %s: no CUDA device (torch.cuda.is_available() is False); "
                            "pass --device cpu to run on the host" % name)
+    no_tf32()
     return device
 
 

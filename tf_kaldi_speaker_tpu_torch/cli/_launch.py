@@ -16,12 +16,13 @@ import logging
 
 from .. import parallel
 from ..utils import bookkeeping as bk
+from ._frontend import device_or_raise
 
 
 def start(device: str):
     """Join the launcher's ranks (left at exit); returns this rank's
-    device."""
-    dev = parallel.initialize(device)
+    device (checked, and TF32 off, by ``device_or_raise``)."""
+    dev = parallel.initialize(device_or_raise(device))
     atexit.register(parallel.shutdown)
     if not parallel.is_main():
         logging.getLogger().setLevel(logging.WARNING)

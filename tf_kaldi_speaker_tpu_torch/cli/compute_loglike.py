@@ -22,6 +22,7 @@ import sys
 import numpy as np
 
 from ..kio import open_or_fd, read_mat_rspec, write_mat
+from ._frontend import device_or_raise
 from .extract_mt import load_mt_trainer
 
 
@@ -35,6 +36,7 @@ def main(argv=None) -> int:
     parser.add_argument("rspecifier")
     parser.add_argument("wspecifier")
     args = parser.parse_args(argv)
+    device = device_or_raise(args.device)
 
     with open(args.prior) as f:
         prior = np.array(
@@ -44,7 +46,7 @@ def main(argv=None) -> int:
     assert np.allclose(prior.sum(), 1.0), "prior must sum to 1"
     log_prior = np.log(prior)[None, :]
 
-    trainer = load_mt_trainer(args.model_dir, device=args.device)
+    trainer = load_mt_trainer(args.model_dir, device=device)
     fp_out = open_or_fd(args.wspecifier, "wb")
     count = 0
     for key, feature in read_mat_rspec(args.rspecifier):

@@ -30,6 +30,7 @@ from ..extract.extractor import Extractor
 from ..kio import ArkScpWriter, decode_cm_codes, read_codes_scp, read_mat_rspec
 from ..ops.cmvn import sliding_cmvn_masked
 from ..ops.vad import compute_vad_energy_masked
+from ._frontend import device_or_raise
 
 
 def apply_cmvn_vad(feature: np.ndarray, cmvn: bool, vad: bool,
@@ -133,6 +134,7 @@ def main(argv=None) -> int:
     parser.add_argument("rspecifier")
     parser.add_argument("wspecifier")
     args = parser.parse_args(argv)
+    args.device = device_or_raise(args.device)
 
     if args.device_pipe:
         return _main_device_pipe(args)

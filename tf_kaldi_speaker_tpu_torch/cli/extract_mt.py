@@ -35,6 +35,7 @@ from ._frontend import device_or_raise
 def load_mt_trainer(model_dir: str, node: str = "", device="cuda") -> TrainerMultiTask:
     """The multitask trainer of ``model_dir`` in its last checkpoint's
     state, on ``device``."""
+    device = device_or_raise(device)
     nnet_dir = os.path.join(model_dir, "nnet")
     params = Params(os.path.join(nnet_dir, "config.json"))
     if node:
@@ -43,7 +44,7 @@ def load_mt_trainer(model_dir: str, node: str = "", device="cuda") -> TrainerMul
     num_speakers = bk.read_scalar_file(os.path.join(nnet_dir, "num_speakers"))
     num_phones = bk.read_scalar_file(os.path.join(nnet_dir, "num_phones"))
     trainer = TrainerMultiTask(params, nnet_dir, dim=dim, num_speakers=num_speakers,
-                               num_phones=num_phones, device=device_or_raise(device))
+                               num_phones=num_phones, device=device)
     trainer.build("train", dim, num_speakers=num_speakers, num_phones=num_phones)
     trainer.load()
     trainer.build("predict", dim)

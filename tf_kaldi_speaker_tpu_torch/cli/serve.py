@@ -15,6 +15,7 @@ import logging
 import sys
 
 from ..extract.server import EmbeddingServer
+from ._frontend import device_or_raise
 
 
 def main(argv=None) -> int:
@@ -31,7 +32,7 @@ def main(argv=None) -> int:
     server = EmbeddingServer(
         args.model_dir, host=args.host, port=args.port,
         batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
-        node=args.node or None, device=args.device,
+        node=args.node or None, device=device_or_raise(args.device),
     )
     server.serve_forever()
     return 0

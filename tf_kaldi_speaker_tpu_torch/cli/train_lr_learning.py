@@ -21,6 +21,7 @@ import sys
 from ..kio import FeatureReader
 from ..train.trainer import Trainer
 from ..utils import bookkeeping as bk
+from ._frontend import device_or_raise
 
 
 def main(argv=None) -> int:
@@ -36,6 +37,7 @@ def main(argv=None) -> int:
     parser.add_argument("train_spklist")
     parser.add_argument("model_dir")
     args = parser.parse_args(argv)
+    device = device_or_raise(args.device)
 
     params = bk.save_codes_and_config(False, args.model_dir, args.config)
     nnet_dir = os.path.join(args.model_dir, "nnet")
@@ -47,7 +49,7 @@ def main(argv=None) -> int:
     bk.write_scalar_file(os.path.join(nnet_dir, "feature_dim"), dim)
     bk.write_scalar_file(os.path.join(nnet_dir, "num_speakers"), num_speakers)
 
-    trainer = Trainer(params, nnet_dir, dim=dim, num_speakers=num_speakers, device=args.device)
+    trainer = Trainer(params, nnet_dir, dim=dim, num_speakers=num_speakers, device=device)
     trainer.build("train", dim, params.loss_func, num_speakers)
     try:
         if args.pretrain_model:

@@ -54,8 +54,8 @@ def main(argv=None) -> int:
     parser.add_argument("model_dir")
     args = parser.parse_args(argv)
 
-    aux_data = parse_aux_data(args.aux_data)
     device = _launch.start(args.device)
+    aux_data = parse_aux_data(args.aux_data)
     params = _launch.model_dir_params(args.cont, args.model_dir, args.config, device)
     nnet_dir = os.path.join(args.model_dir, "nnet")
 

@@ -28,7 +28,6 @@ from ..multitask import TrainerMultiTask, get_num_phones
 from ..train.preemption import exit_code_if_preempted, install_preemption_handler
 from ..utils import bookkeeping as bk
 from . import _launch
-from ._frontend import device_or_raise
 
 
 def main(argv=None) -> int:
@@ -46,7 +45,6 @@ def main(argv=None) -> int:
     parser.add_argument("model_dir")
     args = parser.parse_args(argv)
 
-    device = device_or_raise(args.device)
     device = _launch.start(args.device)
     params = _launch.model_dir_params(args.cont, args.model_dir, args.config, device)
     nnet_dir = os.path.join(args.model_dir, "nnet")

@@ -1,8 +1,8 @@
 """Kaldi ark/scp I/O for the port, numpy only: float matrices (compressed
 included), raw compressed-matrix codes for the device pipe, float vectors,
 int vectors (alignments) and posteriors, r/w-specifiers, wav files and
-``wav.scp``, the data-directory ``FeatureReader`` and the multitask
-path's ``FeatureReaderV2``. Counterpart of
+``wav.scp``, the data-directory ``FeatureReader``, the multitask
+path's ``FeatureReaderV2`` and the OpenFst codec of decoding graphs. Counterpart of
 ``tf_kaldi_speaker_tpu/kio`` for the formats the port reads and writes."""
 
 from .ark import (
@@ -26,6 +26,7 @@ from .ark import (
     write_vec_flt,
     write_vec_int,
 )
+from .fst import StdFst, build_fst, read_fst, read_words_txt, write_fst
 from .reader import FeatureReader, FeatureReaderV2
 from .rspecifier import SubprocessFailed, open_or_fd, popen, read_key
 from .wav import read_wav, read_wav_scp, write_wav
@@ -34,12 +35,15 @@ __all__ = [
     "ArkScpWriter",
     "FeatureReader",
     "FeatureReaderV2",
+    "StdFst",
     "SubprocessFailed",
+    "build_fst",
     "compress_matrix",
     "decode_cm_codes",
     "open_or_fd",
     "popen",
     "read_codes_scp",
+    "read_fst",
     "read_key",
     "read_mat",
     "read_mat_ark",
@@ -54,6 +58,8 @@ __all__ = [
     "read_vec_int_ark",
     "read_wav",
     "read_wav_scp",
+    "read_words_txt",
+    "write_fst",
     "write_mat",
     "write_post",
     "write_vec_flt",

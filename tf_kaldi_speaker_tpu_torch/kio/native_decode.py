@@ -14,7 +14,10 @@ releases the GIL for the call.
 The library is built with ``g++`` at first use into
 ``build/tfks_torch_native/`` under a name hashed from the source, the flags
 and the compiler's target macros (so a tree copied to another host builds
-its own). ``-ffp-contract=off`` keeps ``p0 + s * v`` two roundings, so the
+its own), written to a temporary name and renamed into place.
+:func:`library_path` and :func:`build` take the source file, so the WFST
+decoder's core (``native/wfst_decoder.cpp``, bridged by
+``backend/decoder.py``) builds the same way beside it. ``-ffp-contract=off`` keeps ``p0 + s * v`` two roundings, so the
 decode is bit-equal to the numpy codec (``kio/ark.py``) on hosts with FMA.
 
 Every entry point returns None or False when the native core cannot serve
@@ -42,6 +45,7 @@ log = logging.getLogger("tfks_torch.native_decode")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "native", "ark_decoder.cpp")
+WFST_SOURCE = os.path.join(_PKG_DIR, "native", "wfst_decoder.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tfks_torch_native")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
@@ -65,33 +69,38 @@ def reset_counts() -> None:
         counts.clear()
 
 
-def library_path(flags=GXX_FLAGS) -> str:
-    """The library's path: a hash of the source, the flags and what
-    ``-march=native`` means to this host's ``g++``."""
+def library_path(flags=GXX_FLAGS, source=None) -> str:
+    """The library of ``source`` (default :data:`SOURCE`): a hash of the
+    source, the flags and what ``-march=native`` means to this host's
+    ``g++``."""
+    source = source or SOURCE
     h = hashlib.sha256(" ".join(flags).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
     macros = subprocess.run(["g++", "-march=native", "-E", "-dM", "-x", "c++", os.devnull],
                             check=True, capture_output=True).stdout
     h.update(macros)
-    return os.path.join(BUILD_DIR, "libtfks_arkdecode_%s.so" % h.hexdigest()[:16])
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, "libtfks_%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
-def build(flags=GXX_FLAGS) -> str:
-    """Compile the library with ``flags`` if it is missing; returns its
-    path. Raises RuntimeError with the compiler's output when ``g++``
-    fails. Other flags than GXX_FLAGS build a variant beside it (as
-    ``-DTFKS_CM_SPAN_FACTOR=0`` for the JAX copy's column-by-column reads)."""
-    path = library_path(flags)
+def build(flags=GXX_FLAGS, source=None) -> str:
+    """Compile ``source`` (default :data:`SOURCE`) with ``flags`` if its
+    library is missing; returns its path. Raises RuntimeError with the
+    compiler's output when ``g++`` fails. Other flags than GXX_FLAGS build
+    a variant beside it (as ``-DTFKS_CM_SPAN_FACTOR=0`` for the JAX copy's
+    column-by-column reads)."""
+    source = source or SOURCE
+    path = library_path(flags, source)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
-    proc = subprocess.run(["g++", *flags, SOURCE, "-o", tmp],
+    proc = subprocess.run(["g++", *flags, source, "-o", tmp],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("g++ exited %d building %s:\n%s%s"
-                           % (proc.returncode, SOURCE, proc.stdout, proc.stderr))
+                           % (proc.returncode, source, proc.stdout, proc.stderr))
     os.replace(tmp, path)
     return path
 

@@ -29,8 +29,8 @@ the shared length seed) and draws its rows' phone masks from its own mask
 stream; both heads compute the global batch's losses from the gathered
 rows; validation gives each rank its row block of the same global batch,
 padded with weight-0 rows, the masks drawn over the padded batch as JAX
-draws them. The egs counters are summed over the data ranks and written by
-rank 0 (the JAX trainer writes process 0's own rows only).
+draws them. Each rank counts its own egs and rank 0 writes its local
+counts, a 1/nproc sample, as the JAX trainer's process 0 does.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.func import functional_call
 
 from ..data import DataOutOfRange, device_prefetch
@@ -246,18 +245,14 @@ class TrainerMultiTask(Trainer):
             self.save(gstep)
 
     def _dump_egs_stats(self) -> None:
-        """Per-class training-example counts (base_v1.py:950-995), summed
-        over the data ranks, beside the nnet dir (rank 0)."""
-        totals = [self.speaker_egs, self.phone_egs]
-        if self.mesh.data_size > 1:
-            for i, counts in enumerate(totals):
-                t = torch.tensor(counts, device=self.mesh.flag_device(self.device))
-                dist.all_reduce(t, group=self.mesh.data_group)
-                totals[i] = t.cpu().numpy()
+        """Per-class training-example counts (base_v1.py:950-995) beside
+        the nnet dir. On several ranks each counts only its own egs and
+        rank 0 writes its local counts (a 1/nproc sample of the global
+        distribution), as the JAX trainer's process 0 does."""
         if self.mesh.rank != 0:
             return
         root = os.path.dirname(self.model)
-        for name, counts in zip(("speaker_egs", "phone_egs"), totals):
+        for name, counts in (("speaker_egs", self.speaker_egs), ("phone_egs", self.phone_egs)):
             with open(os.path.join(root, name), "w") as f:
                 for i, c in enumerate(counts):
                     f.write("%d %d\n" % (i, c))

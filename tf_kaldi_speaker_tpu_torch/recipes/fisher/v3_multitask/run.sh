@@ -3,12 +3,13 @@
 # recipes/fisher/v3_multitask/run.sh, on one CUDA card.
 #
 # The same stages and variables as recipes/fisher/v3_multitask/run.sh,
-# stages 1-5 through python -m tf_kaldi_speaker_tpu_torch.cli.*; the shipped
+# through python -m tf_kaldi_speaker_tpu_torch.cli.*; the shipped
 # recipes/fisher/v3_multitask/nnet_conf/mt_softmax.json is read in place
 # (run from the repository root). One more variable: device (default cuda)
 # is passed as --device to every CLI that takes one (device=cpu runs the
-# recipe on the host). Stage 6, the decode driver, is not ported: it stops
-# with an error.
+# recipe on the host). Stage 6 runs the port's copy of the decode recipe,
+# run_decode.sh beside this file, over graph_dir (HCLG.fst + words.txt;
+# "-" or unset stops after the loglike dump).
 #
 # Mirrors the staged reference egs/fisher/v3/run_v1.sh: joint x-vector +
 # senone training on features that KEEP silence (so alignments stay
@@ -108,7 +109,6 @@ fi
 
 if [ $stage -le 6 ] && [ $stop_stage -ge 6 ]; then
   echo "=== stage 6: full decode driver (checkpoint pin + loglike + latgen when present)"
-  echo "stage 6: the decode driver (recipes/fisher/v3_multitask/run_decode.sh) is not" \
-    "ported yet (ROADMAP.md section 1 item 8)" >&2
-  exit 1
+  device="$device" bash tf_kaldi_speaker_tpu_torch/recipes/fisher/v3_multitask/run_decode.sh \
+    "$model" "$ali_dir" "${graph_dir:--}" "$data_root/split/valid"
 fi

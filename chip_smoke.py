@@ -227,6 +227,36 @@ Phases, each of which raises on failure:
    asserts: both score files, the per-language splits, the calibrated
    scores, Cllr and minDCF/actDCF; each stage's time; the path's shapes
    replayed, as in 7.
+30. TF1 checkpoint interop at the flagship's width:
+   ``cli.export_tf_checkpoint`` of the checkpoint that 9's trained
+   flagship dir serves (bf16, fused pooling; 15 points it at the best
+   epoch's), ``cli.import_tf_checkpoint --device cuda`` of it into a new
+   model dir (params and batch statistics bit-equal to the trained
+   checkpoint), ``cli.extract --device-pipe --cmvn --vad`` over 5's ark from
+   the imported dir and from the original (the path ``interop``: the dequant
+   and the pooling forward must launch; the arks byte-equal, else each
+   embedding within 1 - cosine 1e-6); ``tests/data/tf_golden``'s
+   ``model-0`` and ``export/model-3`` imported on the card with the golden
+   tests' config, their float32 forward against real TF's endpoints and
+   losses at rtol/atol 1e-4; the tools on the trained flagship:
+   ``extract_softmax_weights`` (one finite 512-d vector a speaker),
+   ``train_insight --device cuda`` on the validation dir against the same
+   call with ``--device cpu`` (the valid loss within the CPU-versus-card
+   bound; its launches join the path), ``target_logit_curve`` on the card
+   equal to the CPU's CSV; each step's seconds;
+31. extraction over several row blocks: the ``Extractor`` (5's utterances
+   through the host CMVN and VAD, those over 600 frames after it through the
+   50%-overlap chunks) and the ``DevicePipeExtractor`` (those of up to 600
+   frames before it, as raw codes) from the trained flagship (bf16) and
+   its float32 copy with ``devices=["cuda:0", "cuda:0"]``, each bucket
+   batch cut into two row blocks on the one card (the path
+   ``extract_multi``: the dequant and the pooling forward must launch),
+   and over every visible card where there are several, against one
+   device, each way warmed up once: the keys in the same order, byte-equal
+   or within 1 - cosine 1e-6 in float32 (the split, pad and merge code)
+   and 1e-3 in bf16 (8's bound: products of another row count round
+   differently), and the embeddings a second of each, one card's rates and
+   not a scaling number.
 
 Phases 25 and then 29 run in a thread beside phase 21 (their work in their
 own processes; each path's shapes are replayed after all three end), so
@@ -1757,10 +1787,10 @@ def dcf_bounds(labels):
                 min_dcf10=1.0 / n_t + 0.999 / 0.001 / n_n)
 
 
-def float32_model(trained, root):
+def float32_model(trained, root, name="wav_model"):
     """The trained flagship's checkpoint with compute_dtype float32, so the
     card and the CPU run the same float32 forward."""
-    model = os.path.join(root, "wav_model")
+    model = os.path.join(root, name)
     shutil.copytree(os.path.join(trained, "nnet"), os.path.join(model, "nnet"))
     cfg_path = os.path.join(model, "nnet", "config.json")
     with open(cfg_path) as f:
@@ -5148,6 +5178,324 @@ def run_sre_recipe(torch, root, device="cuda"):
     return dict(launches), shapes, dict(sre_stage_s=stage_s, sre_outputs=outputs)
 
 
+# Phase 30, TF interop: the golden config of tests/test_tf_golden.py (its
+# CFG, copied: this script may not import tests/), the checkpoints real TF
+# 2.21 wrote and the endpoints it computed, held at that test's tolerance
+GOLDEN_DIR = os.path.join(ROOT, "tests", "data", "tf_golden")
+GOLDEN_CFG = dict(
+    seed=0,
+    network_type="tdnn",
+    tdnn_layer_size=32,
+    num_nodes_pooling_layer=64,
+    num_nodes_last_layer=32,
+    pooling_type="statistics_pooling",
+    embedding_node="tdnn6_dense",
+    last_layer_linear=True,
+    loss_func="additive_margin_softmax",
+    amsoftmax_m=0.2,
+    amsoftmax_lambda_min=0.0,
+    amsoftmax_lambda_base=1000.0,
+    amsoftmax_lambda_gamma=1e-4,
+    amsoftmax_lambda_power=5.0,
+    batchnorm_momentum=0.95,
+    optimizer="sgd",
+    weight_l2_regularizer=0.0,
+)
+GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)
+# checkpoint -> (TF's outputs, [(the port's endpoint, TF's name)])
+GOLDEN_FORWARDS = {
+    "model-0": ("golden.npz", [(n, n) for n in (
+        "tdnn1_conv", "tdnn1_bn", "tdnn2_conv", "tdnn3_conv", "tdnn4_dense", "tdnn5_dense",
+        "pooling", "tdnn6_dense", "tdnn6_bn", "tdnn7_dense", "tdnn7_bn", "logits")]),
+    "export/model-3": ("golden_export.npz", [("tdnn6_dense", "embedding"), ("pooling", "pooling"),
+                                             ("logits", "logits")]),
+}
+# an extraction from the imported dir against one from the original: the
+# same weights bit for bit, so byte-equal arks are expected; else each
+# embedding within this 1 - cosine
+INTEROP_COSINE_GAP = 1e-6
+# Phase 31: utterances of phase 5's ark over MULTI_CHUNK frames after the
+# host VAD go through the 50%-overlap long path (the feature path); those
+# over it before (raw codes) are left out of the pipe
+MULTI_CHUNK = 600
+# 1 - cosine of the row blocks against one device: float32, the split, pad
+# and merge code alone; bf16, also the rounding of products at another row
+# count, the server's bound (phase 8; 1.58e-6 read in one run, PERF.md §6)
+MULTI_COSINE_GAP = {"f32": 1e-6, "bf16": 1e-3}
+
+
+def read_tf_prefix(directory):
+    """The prefix of the one TensorBundle checkpoint in ``directory``."""
+    found = glob.glob(os.path.join(directory, "model-*.index"))
+    if len(found) != 1:
+        raise AssertionError("%s holds %d checkpoints, not 1" % (directory, len(found)))
+    return found[0][:-len(".index")]
+
+
+def same_trees(a, b):
+    """Two checkpoint trees' params and batch_stats, bit for bit."""
+    from tf_kaldi_speaker_tpu_torch.convert import flatten
+
+    fa = flatten({k: a[k] for k in ("params", "batch_stats")})
+    fb = flatten({k: b[k] for k in ("params", "batch_stats")})
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].dtype == fb[k].dtype and bool((fa[k] == fb[k]).all()) for k in fa)
+
+
+def compare_embeddings(name, got, want, gap):
+    """Two [(key, embedding)] lists: the keys in the same order; byte-equal,
+    or every 1 - cosine <= gap. Returns (byte_equal, the largest 1 - cosine)."""
+    if [k for k, _ in got] != [k for k, _ in want]:
+        raise AssertionError("%s: the keys or their order differ" % name)
+    equal = all(g.dtype == w.dtype and g.tobytes() == w.tobytes() for (_, g), (_, w) in
+                zip(got, want))
+    worst = max(1.0 - cosine(g, w) for (_, g), (_, w) in zip(got, want))
+    if not equal and not worst <= gap:
+        raise AssertionError("%s: 1 - cosine %.3g > %g" % (name, worst, gap))
+    return equal, worst
+
+
+def check_golden(torch, root, device="cuda"):
+    """tests/data/tf_golden's model-0 (TF's variables) and export/model-3
+    (this framework's export, restored by a real TF Saver) imported on the
+    card; the float32 eval forward against TF's endpoints and losses.
+    Returns the largest error over the endpoints."""
+    from tf_kaldi_speaker_tpu_torch.train.tf_import import import_reference_checkpoint
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+    from tf_kaldi_speaker_tpu_torch.utils.params import ParamsPlain
+
+    worst = 0.0
+    for ckpt, (npz, names) in GOLDEN_FORWARDS.items():
+        gold = np.load(os.path.join(GOLDEN_DIR, npz))
+        t = Trainer(ParamsPlain(**GOLDEN_CFG),
+                    os.path.join(root, "golden_" + ckpt.replace("/", "_"), "nnet"),
+                    dim=20, num_speakers=10, device=device)
+        t.build("train", 20, GOLDEN_CFG["loss_func"], 10)
+        imported, skipped = import_reference_checkpoint(os.path.join(GOLDEN_DIR, ckpt), t)
+        if skipped not in ([], ["global_step"]) or len(imported) < 40:
+            raise AssertionError("golden %s: imported %d, skipped %s"
+                                 % (ckpt, len(imported), skipped))
+        feats = torch.from_numpy(gold["features"]).to(device)
+        labels = torch.from_numpy(gold["labels"]).long().to(device)
+        with torch.no_grad():
+            model = t.network_model.eval()
+            loss0, ep = model(feats, labels, 0)
+            loss20k, _ = model(feats, labels, 20000)
+        for mine, theirs in names:
+            worst = max(worst, check_close(
+                "golden %s %s" % (ckpt, mine), ep[mine].float().cpu().squeeze(),
+                torch.from_numpy(gold[theirs]).squeeze(), quiet=True, **GOLDEN_TOL))
+        for step, loss in ((0, loss0), (20000, loss20k)):
+            check_close("golden %s loss at step %d" % (ckpt, step), loss.cpu().reshape(1),
+                        torch.tensor([float(gold["loss_step%d" % step])]), atol=1e-5, rtol=1e-4,
+                        quiet=True)
+        print("golden %s imported on %s (%d tensors, skipped %s): the float32 forward's "
+              "%d endpoints and the loss at steps 0 and 20000 against real TF's (%s) within "
+              "rtol/atol 1e-4 ok" % (ckpt, device, len(imported), skipped, len(names), npz))
+    return worst
+
+
+def insight_reading(torch, main_fn, argv):
+    """train_insight's (valid loss, EER, embeddings) from its line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    m = re.search(r"valid_loss (\S+) eer (\S+) \((\d+) embeddings\)", buf.getvalue())
+    if rc != 0 or m is None:
+        raise AssertionError("train_insight %s: rc %d, %r" % (argv, rc, buf.getvalue()))
+    return float(m.group(1)), float(m.group(2)), int(m.group(3))
+
+
+def run_interop(torch, root, trained, scp, valid, device="cuda"):
+    """Phase 30: export the trained flagship as a TF checkpoint, import it
+    on the card into a new model dir, extract from both; the golden
+    checkpoints' forwards on the card; the three tools on the flagship.
+    Returns the path's launches and a summary."""
+    from tf_kaldi_speaker_tpu_torch.cli import export_tf_checkpoint, import_tf_checkpoint
+    from tf_kaldi_speaker_tpu_torch.cli import extract as cli_extract
+    from tf_kaldi_speaker_tpu_torch.cli import (extract_softmax_weights, target_logit_curve,
+                                                train_insight)
+    from tf_kaldi_speaker_tpu_torch.kio import read_tf_checkpoint, read_vec_flt_ark
+    from tf_kaldi_speaker_tpu_torch.train.checkpoints import load_checkpoint, read_pointer
+
+    out = {}
+    # the checkpoint the dir serves: phase 15 points it at the best epoch's,
+    # and export_tf_checkpoint's default is the newest
+    step = read_pointer(os.path.join(trained, "nnet"))
+    t0 = time.perf_counter()
+    tf_dir = os.path.join(root, "interop_tf")
+    if export_tf_checkpoint.main(["--checkpoint", str(step), trained, tf_dir]) != 0:
+        raise RuntimeError("export_tf_checkpoint exited non-zero")
+    prefix = read_tf_prefix(tf_dir)
+    n_tensors = len(read_tf_checkpoint(prefix))
+    out["export_s"] = time.perf_counter() - t0
+    with open(os.path.join(trained, "nnet", "num_speakers")) as f:
+        n_spk = int(f.read())
+    imported = os.path.join(root, "interop_imported")
+    t0 = time.perf_counter()
+    if import_tf_checkpoint.main(["--config", os.path.join(tf_dir, "config.json"),
+                                  "--feature-dim", str(FEAT_DIM), "--num-speakers", str(n_spk),
+                                  "--device", device, prefix, imported]) != 0:
+        raise RuntimeError("import_tf_checkpoint exited non-zero")
+    out["import_s"] = time.perf_counter() - t0
+    if not same_trees(load_checkpoint(os.path.join(imported, "nnet"))[0],
+                      load_checkpoint(os.path.join(trained, "nnet"))[0]):
+        raise AssertionError("the imported params/batch_stats differ from the trained checkpoint")
+    print("export_tf_checkpoint of the trained flagship: %d tensors (%s) in %.3f s; "
+          "import_tf_checkpoint --device %s in %.3f s: params and batch_stats bit-equal to "
+          "the trained checkpoint ok" % (n_tensors, os.path.basename(prefix), out["export_s"],
+                                         device, out["import_s"]))
+
+    flags = ["--device-pipe", "--cmvn", "--vad", "--batch-size", "32", "--device", device]
+    arks = {}
+    for name, model in (("original", trained), ("imported", imported)):
+        dst = os.path.join(root, "interop_xv_" + name)
+        run = drive(torch, cli_extract.main,
+                    flags + [model, "scp:" + scp, "ark,scp:%s.ark,%s.scp" % (dst, dst)])
+        if run["rc"] != 0:
+            raise RuntimeError("cli.extract from the %s dir exited %d" % (name, run["rc"]))
+        arks[name] = dst + ".ark"
+        out[name + "_extract_s"] = run["wall"]
+    launches = check_launched("interop (cli.extract --device-pipe from the imported dir)", run,
+                              ["cm_dequantize", "masked_stats_pooling"])
+    got, want = (list(read_vec_flt_ark(arks[k])) for k in ("imported", "original"))
+    if len(got) != N_UTTS:
+        raise AssertionError("imported dir: %d embeddings, not %d" % (len(got), N_UTTS))
+    with open(arks["imported"], "rb") as a, open(arks["original"], "rb") as b:
+        out["arks_byte_equal"] = a.read() == b.read()
+    _, out["interop_max_one_minus_cos"] = compare_embeddings(
+        "imported vs original", got, want, INTEROP_COSINE_GAP)
+    print("cli.extract --device-pipe --cmvn --vad, imported dir vs the original, %d embeddings: "
+          "arks byte-equal %s, largest 1 - cosine %.3g (<= %g) ok"
+          % (len(got), out["arks_byte_equal"], out["interop_max_one_minus_cos"],
+             INTEROP_COSINE_GAP))
+    t0 = time.perf_counter()
+    out["golden_max_abs_err"] = check_golden(torch, root, device)
+    out["golden_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ark = os.path.join(root, "interop_softmax_weights.ark")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = extract_softmax_weights.main([trained, ark])
+    vecs = list(read_vec_flt_ark(ark))
+    with open(os.path.join(trained, "nnet", "config.json")) as f:
+        width = json.load(f).get("num_nodes_last_layer", 512)
+    if rc != 0 or len(vecs) != n_spk or any(v.shape != (width,) or not np.isfinite(v).all()
+                                            for _, v in vecs):
+        raise AssertionError("extract_softmax_weights: rc %d, %d vectors (want %d of %d-d)"
+                             % (rc, len(vecs), n_spk, width))
+    out["softmax_weights_s"] = time.perf_counter() - t0
+    argv = [valid["data"], valid["spklist"], trained]
+    t0 = time.perf_counter()
+    insight = drive(torch, lambda a: insight_reading(torch, train_insight.main, a),
+                    ["--device", device] + argv)
+    card = insight["rc"]
+    out["train_insight_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = insight_reading(torch, train_insight.main, ["--device", "cpu"] + argv)
+    out["train_insight_cpu_s"] = time.perf_counter() - t0
+    gap = abs(card[0] - cpu[0]) / abs(cpu[0])
+    if card[2] != cpu[2] or not np.isfinite(card[0]) or not gap <= CPU_GAP:
+        raise AssertionError("train_insight: card %s vs CPU %s (relative loss gap %.3g > %g)"
+                             % (card, cpu, gap, CPU_GAP))
+    out.update(train_insight_loss_gap=gap, train_insight_eer_card=card[1],
+               train_insight_eer_cpu=cpu[1])
+    for name, n in insight["launches"].items():
+        launches[name] += n
+    curves = {}
+    t0 = time.perf_counter()
+    for dev in (device, "cpu"):
+        csv = os.path.join(root, "interop_curve_%s.csv" % dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            if target_logit_curve.main(["--device", dev, csv]) != 0:
+                raise RuntimeError("target_logit_curve --device %s exited non-zero" % dev)
+        with open(csv) as f:
+            curves[dev] = f.read()
+    out["target_logit_curve_s"] = time.perf_counter() - t0
+    if curves[device] != curves["cpu"] or len(curves["cpu"].splitlines()) != 402:
+        raise AssertionError("target_logit_curve: the card's CSV differs from the CPU's")
+    print("tools on the trained flagship (%s): extract_softmax_weights %d x %d-d in %.3f s; "
+          "train_insight --device %s valid loss %.6f EER %.4f (%d embeddings, %.3f s) vs CPU "
+          "%.6f EER %.4f (%.3f s): relative loss gap %.3g (<= %g) ok; target_logit_curve "
+          "--device %s == --device cpu, 401 rows ok"
+          % (CARD, len(vecs), width, out["softmax_weights_s"], device, card[0], card[1],
+             card[2], out["train_insight_card_s"], cpu[0], cpu[1], out["train_insight_cpu_s"],
+             gap, CPU_GAP, device))
+    return launches, out
+
+
+def run_extract_multi(torch, root, trained, scp, device="cuda"):
+    """Phase 31: the Extractor and the DevicePipeExtractor with the bucket
+    batches cut into two row blocks on the one card (devices cuda:0 twice),
+    and over every visible card where there are several, against one
+    device on phase 5's utterances, from the trained flagship (bf16) and
+    its float32 copy. Each way runs once to warm up, then once timed.
+    Returns the two-block runs' launches and a summary."""
+    from tf_kaldi_speaker_tpu_torch.cli.extract import apply_cmvn_vad
+    from tf_kaldi_speaker_tpu_torch.extract.device_pipe import DevicePipeExtractor
+    from tf_kaldi_speaker_tpu_torch.extract.extractor import Extractor
+    from tf_kaldi_speaker_tpu_torch.kio import read_codes_scp, read_mat_scp
+
+    feats = [(k, apply_cmvn_vad(m, True, True)) for k, m in read_mat_scp(scp)]
+    codes = [(k, c, h) for k, c, h in read_codes_scp(scp) if c.shape[0] <= MULTI_CHUNK]
+    n_long = sum(f.shape[0] > MULTI_CHUNK for _, f in feats)
+    if not n_long or not codes:
+        raise AssertionError("%d utterances over %d frames after the pipe, %d up to it before"
+                             % (n_long, MULTI_CHUNK, len(codes)))
+    first = device + ":0" if device == "cuda" else device
+    ways = {"one_device": dict(device=first), "two_blocks": dict(devices=[first] * 2)}
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        ways["every_card"] = dict(device="cuda")
+    models = {"bf16": trained, "f32": float32_model(trained, root, "multi_f32_model")}
+    kw = dict(batch_size=32, chunk_size=MULTI_CHUNK)
+    out, launches = {}, collections.Counter()
+
+    def extract(model, way, timed):
+        ex = Extractor(model, **kw, **ways[way])
+        pipe = DevicePipeExtractor(model, cmvn=True, vad=True, **kw, **ways[way])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = list(ex.embed_stream(iter(feats)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c = list(pipe.embed_codes_stream(iter(codes)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        timed.update(feature=f, pipe=c, feature_emb_per_s=len(f) / (t1 - t0),
+                     pipe_emb_per_s=len(c) / (t2 - t1))
+        return 0
+
+    for name, model in models.items():
+        results = {}
+        for way in ways:
+            extract(model, way, {})  # warm-up: cuDNN's and cuBLAS's choices at these shapes
+            results[way] = {}
+            if way == "two_blocks":
+                run = drive(torch, lambda argv: extract(model, way, results[way]), [])
+                launches.update(check_launched(
+                    "extract_multi (%s: Extractor and DevicePipeExtractor over two row blocks "
+                    "on %s)" % (name, first), run, ["cm_dequantize", "masked_stats_pooling"]))
+            else:
+                extract(model, way, results[way])
+            for path in ("feature", "pipe"):
+                out["%s_%s_%s_emb_per_s" % (name, way, path)] = results[way][path + "_emb_per_s"]
+        for way in ways:
+            if way == "one_device":
+                continue
+            for path in ("feature", "pipe"):
+                equal, worst = compare_embeddings(
+                    "%s %s %s path vs one device" % (name, way, path), results[way][path],
+                    results["one_device"][path], MULTI_COSINE_GAP[name])
+                out["%s_%s_%s_byte_equal" % (name, way, path)] = equal
+                out["%s_%s_%s_max_one_minus_cos" % (name, way, path)] = worst
+    print("extraction over row blocks (%s; rates of one card, not a scaling number): %d "
+          "utterances through the feature path (%d over %d frames, 50%%-overlap chunks) and %d "
+          "through the device pipe, bounds %s; %s ok"
+          % (CARD, len(feats), n_long, MULTI_CHUNK, len(codes), MULTI_COSINE_GAP,
+             json.dumps(out)))
+    return dict(launches), out
+
+
 def run_fisher_then_sre(torch, root):
     """Phases 25 and 29, one after the other (29 starts from 25's stage-1
     output): what runs beside phase 21."""
@@ -5291,6 +5639,10 @@ def main():
     replay_mix(torch, {k: v for k, v in sre_shapes.items() if v}, rows, flush, prefix="sre_mix_")
     del flush
     print("sre recipe summary (%s): %s" % (CARD, json.dumps(sre_summary)))
+    paths["interop"], interop_summary = run_interop(torch, WORK_DIR, trained, scp, valid)
+    print("interop summary (%s): %s" % (CARD, json.dumps(interop_summary)))
+    paths["extract_multi"], multi_summary = run_extract_multi(torch, WORK_DIR, trained, scp)
+    print("extract_multi summary (%s): %s" % (CARD, json.dumps(multi_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

@@ -829,3 +829,82 @@ def test_decode_phase_on_cpu(tmp_path, monkeypatch):
     sound = summary["decode_card_vs_cpu"]
     assert len(sound["cost_gaps"]) == 16 and max(sound["cost_gaps"]) == 0
     assert sound["words_agree"] == 1
+
+
+def test_interop_and_multi_phases_are_wired():
+    """Phases 30 and 31 run in main after phase 29, in that order, and add
+    the paths "interop" and "extract_multi" to the kernels line; the
+    docstring lists both; the golden config copied into the script is
+    test_tf_golden's, and the golden files it reads exist."""
+    from test_tf_golden import CFG
+
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1].split("if dp_spread:", 1)[1]
+    calls = ['prefix="sre_mix_"', 'paths["interop"], interop_summary = run_interop(',
+             'paths["extract_multi"], multi_summary = run_extract_multi(',
+             "print(json.dumps({\"kernels\""]
+    at = [main_src.index(c) for c in calls]
+    assert at == sorted(at)
+    for n in (30, 31):
+        assert "\n%d. " % n in cs.__doc__
+    assert cs.GOLDEN_CFG == CFG
+    assert cs.GOLDEN_TOL == dict(rtol=1e-4, atol=1e-4)
+    for ckpt, (npz, names) in cs.GOLDEN_FORWARDS.items():
+        gold = np.load(os.path.join(cs.GOLDEN_DIR, npz))
+        assert os.path.exists(os.path.join(cs.GOLDEN_DIR, ckpt + ".index"))
+        assert all(theirs in gold.files for _, theirs in names)
+
+
+def test_interop_and_multi_phases_on_cpu(tmp_path, monkeypatch):
+    """Phases 30 and 31 end to end at a small width with --device cpu (the
+    kernels' launch checks left out: on the CPU the wrappers run their plain
+    versions): export, import, both extractions byte-equal, the golden
+    forwards, the three tools, and two row blocks against one device."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.train import checkpoints
+    from tf_kaldi_speaker_tpu_torch.train.trainer import Trainer
+    from tf_kaldi_speaker_tpu_torch.utils.params import ParamsPlain
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs, "N_UTTS", 6)
+    asked = []
+    monkeypatch.setattr(cs, "check_launched",
+                        lambda path, run, names: asked.append(sorted(names)) or run["launches"])
+    cfg = dict(cs.TRAIN, tdnn_layer_size=16, num_nodes_pooling_layer=24, num_nodes_last_layer=8,
+               num_speakers_per_batch=4, min_segment_len=48, max_segment_len=64,
+               num_parallel_datasets=2)
+    nnet = tmp_path / "trained" / "nnet"
+    t = Trainer(ParamsPlain(**cfg), str(nnet), dim=cs.FEAT_DIM, num_speakers=8, device="cpu")
+    t.build("train", cs.FEAT_DIM, cfg["loss_func"], 8)
+    t.save(3)
+    t.save(5)
+    # phase 15 points the trained dir at its best epoch's checkpoint; the
+    # phase exports the one the dir serves
+    checkpoints.write_pointer(str(nnet), 3)
+    (nnet / "config.json").write_text(json.dumps(cfg))
+    (nnet / "feature_dim").write_text("%d\n" % cs.FEAT_DIM)
+    (nnet / "num_speakers").write_text("8\n")
+    valid = make_fake_data_dir(str(tmp_path / "valid"), num_speakers=3, utts_per_speaker=2,
+                               dim=cs.FEAT_DIM, min_len=100, max_len=140, seed=1)
+    scp = cs.write_ark(str(tmp_path))
+    trained = str(tmp_path / "trained")
+    launches, summary = cs.run_interop(torch, str(tmp_path), trained, scp, valid, device="cpu")
+    assert summary["arks_byte_equal"] and summary["interop_max_one_minus_cos"] <= 1e-12
+    assert summary["golden_max_abs_err"] < 1e-4
+    assert summary["train_insight_loss_gap"] == 0
+    assert os.path.exists(str(tmp_path / "interop_tf" / "model-3.index"))
+    assert asked == [["cm_dequantize", "masked_stats_pooling"]]
+    launches, summary = cs.run_extract_multi(torch, str(tmp_path), trained, scp, device="cpu")
+    assert asked[1:2] == [["cm_dequantize", "masked_stats_pooling"]]
+    for model in ("bf16", "f32"):
+        for path in ("feature", "pipe"):
+            key = "%s_two_blocks_%s_" % (model, path)
+            assert summary[key + "max_one_minus_cos"] <= cs.MULTI_COSINE_GAP[model]
+            assert summary[key + "emb_per_s"] > 0
+    assert asked[2:] == [["cm_dequantize", "masked_stats_pooling"]]
+    assert not any(k.startswith("every_card") or "_every_card_" in k for k in summary)
+    assert cs.MULTI_COSINE_GAP["f32"] == 1e-6

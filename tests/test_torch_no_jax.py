@@ -50,7 +50,7 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 90, mods\n"
+        "assert len(mods) >= 98, mods\n"
         "assert {'tf_kaldi_speaker_tpu_torch.kio.native_decode',\n"
         "        'tf_kaldi_speaker_tpu_torch.train.trainer_mi',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_bnf',\n"
@@ -83,7 +83,15 @@ def test_port_imports_without_jax():
         "        'tf_kaldi_speaker_tpu_torch.cli.decode_faster',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.lattice_best_path',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.lmrescore',\n"
-        "        'tf_kaldi_speaker_tpu_torch.cli.compute_wer'} <= set(mods), mods\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.compute_wer',\n"
+        "        'tf_kaldi_speaker_tpu_torch.kio.tf_bundle',\n"
+        "        'tf_kaldi_speaker_tpu_torch.train.tf_import',\n"
+        "        'tf_kaldi_speaker_tpu_torch.train.tf_export',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.import_tf_checkpoint',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.export_tf_checkpoint',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.extract_softmax_weights',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.target_logit_curve',\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_insight'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"

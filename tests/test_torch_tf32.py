@@ -36,13 +36,15 @@ def test_the_model_clis_take_a_device():
     want = {"extract", "serve", "train", "finetune", "train_lr_learning", "train_mi",
             "train_mt", "train_mt_lr_learning", "extract_bnf", "extract_mi", "extract_mt",
             "extract_mt_phone", "compute_loglike", "compute_gae2e_loss", "make_mfcc",
-            "compute_vad", "prepare_feats", "augment_data"}
+            "compute_vad", "prepare_feats", "augment_data", "import_tf_checkpoint",
+            "target_logit_curve", "train_insight"}
     assert want <= set(DEVICE_CLIS)
 
 
 def _argv(mod, missing, monkeypatch):
-    """``--device cpu`` and a missing path (or the first choice) for every
-    positional and every required option of ``mod``'s parser."""
+    """``--device cpu`` and a missing path (or the first choice, or 1 where
+    the option takes an int) for every positional and every required option
+    of ``mod``'s parser."""
     actions = []
 
     def collect(self, args=None, namespace=None):
@@ -55,7 +57,7 @@ def _argv(mod, missing, monkeypatch):
             mod.main([])
     argv = ["--device", "cpu"]
     for a in actions:
-        value = a.choices[0] if a.choices else missing
+        value = a.choices[0] if a.choices else "1" if a.type is int else missing
         if a.option_strings and a.required:
             argv += [a.option_strings[0], value]
         elif not a.option_strings and a.nargs not in ("*", "?"):
@@ -66,7 +68,9 @@ def _argv(mod, missing, monkeypatch):
 @pytest.mark.parametrize("name", DEVICE_CLIS)
 def test_cli_device_setup_turns_tf32_off(name, tmp_path, monkeypatch):
     mod = importlib.import_module("tf_kaldi_speaker_tpu_torch.cli." + name)
-    argv = _argv(mod, str(tmp_path / "missing"), monkeypatch)
+    # under a directory that does not exist: a CLI without inputs
+    # (target_logit_curve) fails to write there
+    argv = _argv(mod, str(tmp_path / "absent" / "missing"), monkeypatch)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:

@@ -87,6 +87,16 @@ def flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], An
     return {prefix: tree}
 
 
+def numpy_tree(tree: Any) -> Any:
+    """A nested tree's CPU tensors as numpy arrays (bfloat16 widened to
+    float32, exactly), other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+    return tree
+
+
 def _insert(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})

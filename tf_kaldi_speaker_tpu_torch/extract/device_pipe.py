@@ -13,6 +13,11 @@ on the device, in order (``device_pipe.py:63-98``):
   original order (Kaldi's select-voiced-frames), the rest zeroed and
   masked out of pooling;
 - the forward.
+
+Over several devices (``Extractor``'s ``devices``) each bucket batch is cut
+into row blocks, and each block runs the whole pipe on its own device and
+returns its ``n_out`` (JAX ``device_pipe.py:100-136`` shards the same
+program over the data axis).
 """
 
 from __future__ import annotations
@@ -95,16 +100,14 @@ class DevicePipeExtractor(Extractor):
                 codes[i, : c.shape[0]] = c
                 headers[i] = h
                 lengths[i] = c.shape[0]
-            out = self._fwd_codes(
-                self._to_device(codes, torch.uint8),
-                self._to_device(headers, torch.float32),
-                self._to_device(lengths, torch.int64),
-            )
+            out = [self._fwd_codes(*block) for block in self._row_blocks(
+                (codes, torch.uint8), (headers, torch.float32), (lengths, torch.int64))]
             in_flight.append((items, out))
 
         def drain(entry):
-            items, (emb_dev, n_dev) = entry
-            emb, n_out = emb_dev.cpu().numpy(), n_dev.cpu().numpy()
+            items, out = entry
+            emb = self._gather([e for e, _ in out])
+            n_out = self._gather([n for _, n in out])
             for i, (key, _, _) in enumerate(items):
                 if n_out[i] < self.min_chunk_size:
                     log.info(

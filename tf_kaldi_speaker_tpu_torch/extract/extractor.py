@@ -1,8 +1,22 @@
-"""Batched embedding extraction with length bucketing, on one device.
+"""Batched embedding extraction with length bucketing, on one device or on
+every local card.
 
 Counterpart of ``tf_kaldi_speaker_tpu/extract/extractor.py``: utterances are
 grouped into geometric length buckets, padded and masked (masked pooling
 makes the padded forward equal the unpadded one) and embedded in batches.
+
+One process extracts over all its devices, as the JAX ``Extractor`` runs
+one program over every local device (``extractor.py:74-81, 119-146``):
+``device="cuda"`` with no index means every visible card in index order
+(``cuda:N`` and ``cpu`` one device; ``devices=[...]`` names them, as the
+JAX ``mesh=`` does). Each distinct device holds a replica of the network;
+the batch size is rounded up to a multiple of the device count n, a batch
+n does not divide is padded with zero rows and a zero mask, and each batch
+is cut into n row blocks, each copied to its device (pinned, non-blocking)
+and run there. The rows are independent forwards, so the files written do
+not depend on n; the one-deep pipelining enqueues every block of the next
+batch before the previous one is read back.
+
 Utterances longer than ``chunk_size`` keep the reference's semantics: split
 into 50%-overlapping windows, embed, length-weighted average, optional L2
 norm (reference extract.py:69-93). :meth:`Extractor.embed_long_exact` is
@@ -10,7 +24,8 @@ the exact alternative for the TDNN with statistics pooling (JAX
 ``extractor.py:287-412``): statistics pooling is associative, so the frame
 layers' sums over chunks that overlap by the TDNN's context, accumulated in
 float64, give the embedding of one forward over the whole utterance with
-O(chunk) memory.
+O(chunk) memory; it runs on the first device, as the JAX ``_frames_jit``
+path is not sharded.
 
 bf16 models follow the JAX policy (``extractor.py:100-118``): the host
 casts features to bf16, and every float32 variable, BatchNorm statistics
@@ -19,9 +34,10 @@ included, is cast to bf16.
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,8 +62,29 @@ def make_length_buckets(min_len: int, max_len: int, ratio: float = 1.27) -> List
     return sorted(set(out))
 
 
+def resolve_devices(device: Union[str, torch.device],
+                    devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The extraction devices: ``devices`` where given, else every visible
+    card in index order for a CUDA device with no index, else ``device``
+    alone. No visible card raises."""
+    if devices is not None:
+        out = [torch.device(d) for d in devices]
+        if not out:
+            raise ValueError("devices: an empty list")
+        return out
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("device %s: no CUDA device is visible" % device)
+        return [torch.device("cuda", i) for i in range(n)]
+    return [device]
+
+
 class Extractor:
-    """Loads a trained model dir and embeds utterances in device batches."""
+    """Loads a trained model dir and embeds utterances in device batches,
+    each batch split in row blocks over ``devices`` (see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -57,7 +94,8 @@ class Extractor:
         chunk_size: int = 10000,
         min_chunk_size: int = 25,
         normalize: bool = False,
-        device: str = "cuda",
+        device: Union[str, torch.device] = "cuda",
+        devices: Optional[Sequence] = None,
     ):
         nnet_dir = os.path.join(model_dir, "nnet")
         if not os.path.isdir(nnet_dir):
@@ -68,8 +106,11 @@ class Extractor:
         self.node = self.params.dict.get("embedding_node", "tdnn6_dense")
         with open(os.path.join(nnet_dir, "feature_dim")) as f:
             self.dim = int(f.read().strip())
-        self.device = torch.device(device)
-        self.batch_size = batch_size
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0]  # the exact long path's
+        n = len(self.devices)
+        # every device gets equal rows (JAX extractor.py:79)
+        self.batch_size = -(-batch_size // n) * n
         self.chunk_size = chunk_size
         self.min_chunk_size = min_chunk_size
         self.normalize = normalize
@@ -86,30 +127,62 @@ class Extractor:
             input_dim=self.dim)
         bf16 = self.params.dict.get("compute_dtype", "float32") == "bfloat16"
         self.feed_dtype = torch.bfloat16 if bf16 else torch.float32
-        # Every float32 parameter and buffer (BN statistics too) in bf16.
-        self.net = net.to(device=self.device, dtype=self.feed_dtype)
+        # Every float32 parameter and buffer (BN statistics too) in bf16;
+        # one replica per distinct device.
+        self._replicas: Dict[str, torch.nn.Module] = {}
+        for dev in self.devices:
+            if str(dev) not in self._replicas:
+                replica = copy.deepcopy(net) if self._replicas else net
+                self._replicas[str(dev)] = replica.to(device=dev, dtype=self.feed_dtype)
+        self.net = self._replicas[str(self.device)]
 
     # ------------------------------------------------------------------
-    def _to_device(self, array: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    def _to_device(self, array: np.ndarray, dtype: torch.dtype,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
         # The cast happens on the host: a bf16 model ships 2 bytes/element.
+        device = self.device if device is None else device
         t = torch.from_numpy(array).to(dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    def _row_blocks(self, *arrays: Tuple[np.ndarray, torch.dtype]
+                    ) -> List[List[torch.Tensor]]:
+        """Host arrays of equal rows, zero-padded to a multiple of the
+        device count (zero rows, zero mask: JAX ``extractor.py:131-141``),
+        cut into one row block a device and copied there; a list over the
+        devices of the blocks' tensors, every copy enqueued."""
+        n = len(self.devices)
+        rows = arrays[0][0].shape[0]
+        pad = -rows % n
+        if pad:
+            arrays = tuple((np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]), dt)
+                           for a, dt in arrays)
+        per = (rows + pad) // n
+        return [[self._to_device(a[i * per:(i + 1) * per], dt, dev) for a, dt in arrays]
+                for i, dev in enumerate(self.devices)]
 
     @torch.inference_mode()
     def _forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        _, endpoints = self.net(feats.to(self.feed_dtype), mask)
+        """The forward on the replica of ``feats``' device."""
+        net = self._replicas[str(feats.device)]
+        _, endpoints = net(feats.to(self.feed_dtype), mask)
         return endpoints[self.node].to(torch.float32)
 
-    def _embed_batch_async(self, feats: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """Enqueue one batch; returns the device result without waiting, so
-        the caller can assemble and enqueue the next batch first."""
-        return self._forward(self._to_device(feats, self.feed_dtype),
-                             self._to_device(mask, torch.float32))
+    def _embed_batch_async(self, feats: np.ndarray, mask: np.ndarray) -> List[torch.Tensor]:
+        """Enqueue one batch, a row block a device; returns the blocks'
+        device results without waiting, so the caller can assemble and
+        enqueue the next batch first."""
+        return [self._forward(f, m) for f, m in
+                self._row_blocks((feats, self.feed_dtype), (mask, torch.float32))]
+
+    @staticmethod
+    def _gather(blocks: List[torch.Tensor]) -> np.ndarray:
+        """The row blocks' results on the host, in row order."""
+        return np.concatenate([b.cpu().numpy() for b in blocks], 0)
 
     def _embed_batch(self, feats: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        return self._embed_batch_async(feats, mask).cpu().numpy()
+        return self._gather(self._embed_batch_async(feats, mask))[: feats.shape[0]]
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -118,10 +191,10 @@ class Extractor:
         return self.buckets[-1]
 
     def _rows_for(self, b: int) -> int:
-        """Rows to allocate for a b-item batch: the smallest power of two
-        >= b, capped at batch_size, so a bucket's final partial flush does
-        not ship batch_size rows for a few stragglers."""
-        r = 1
+        """Rows to allocate for a b-item batch: the smallest n * 2^k >= b
+        (n devices), capped at batch_size, so a bucket's final partial
+        flush does not ship batch_size rows for a few stragglers."""
+        r = len(self.devices)
         while r < b and r < self.batch_size:
             r *= 2
         return min(r, self.batch_size)
@@ -154,7 +227,7 @@ class Extractor:
 
         def drain(entry):
             items, out = entry
-            emb = out.cpu().numpy()[: len(items)]
+            emb = self._gather(out)[: len(items)]
             if self.normalize:
                 # the reference applies a final L2 norm to both paths
                 # (extract.py:92-93), not just inside the chunk average

@@ -2,7 +2,8 @@
 included), raw compressed-matrix codes for the device pipe, float vectors,
 int vectors (alignments) and posteriors, r/w-specifiers, wav files and
 ``wav.scp``, the data-directory ``FeatureReader``, the multitask
-path's ``FeatureReaderV2`` and the OpenFst codec of decoding graphs. Counterpart of
+path's ``FeatureReaderV2``, the OpenFst codec of decoding graphs and TF1
+TensorBundle checkpoints (``tf_bundle``). Counterpart of
 ``tf_kaldi_speaker_tpu/kio`` for the formats the port reads and writes."""
 
 from .ark import (
@@ -29,6 +30,7 @@ from .ark import (
 from .fst import StdFst, build_fst, read_fst, read_words_txt, write_fst
 from .reader import FeatureReader, FeatureReaderV2
 from .rspecifier import SubprocessFailed, open_or_fd, popen, read_key
+from .tf_bundle import read_tf_checkpoint, write_tf_checkpoint
 from .wav import read_wav, read_wav_scp, write_wav
 
 __all__ = [
@@ -51,6 +53,7 @@ __all__ = [
     "read_mat_scp",
     "read_post",
     "read_post_ark",
+    "read_tf_checkpoint",
     "read_vec_flt",
     "read_vec_flt_ark",
     "read_vec_flt_scp",
@@ -62,6 +65,7 @@ __all__ = [
     "write_fst",
     "write_mat",
     "write_post",
+    "write_tf_checkpoint",
     "write_vec_flt",
     "write_vec_int",
     "write_wav",

@@ -256,7 +256,25 @@ Phases, each of which raises on failure:
    or within 1 - cosine 1e-6 in float32 (the split, pad and merge code)
    and 1e-3 in bf16 (8's bound: products of another row count round
    differently), and the embeddings a second of each, one card's rates and
-   not a scaling number.
+   not a scaling number;
+32. training quality: the convergence corpus of
+   ``tf_kaldi_speaker_tpu_torch.validation.convergence`` (200 speakers x
+   10, dim 12), then its ``run --program flagship`` arm for seed 1 at the
+   full 3 x 400-step schedule (am-softmax, bf16, the device pool, the
+   fused pooling kernels; 512 wide, batch 24 x 100-200 frames), driven as
+   the path ``quality`` (the dequant, the pooling forward and the pooling
+   backward must each launch): the valid loss after each epoch, the final
+   held-out EER inside JAX's am-softmax f32 band (18.15% ± 1.50%,
+   ``docs/VALIDATION.md:321-330``) and the final valid loss inside JAX's
+   (2.645 ± 0.226, the same rule), and two controls that must each fall
+   outside one of the bands: the untrained network and one epoch on the
+   training corpus with its speaker labels shuffled over the utterances
+   (on this corpus their EERs can land inside the EER band: it alone does
+   not tell them from a trained network; each reading is printed); the
+   quality matrix's kernel shapes checked against the plain versions (the
+   dequant at [64, 151, 12] bit for bit against the host codec, the
+   pooling forward and backward in bf16 at [64, 286, 256]); the path's
+   shapes replayed, as in 7.
 
 Phases 25 and then 29 run in a thread beside phase 21 (their work in their
 own processes; each path's shapes are replayed after all three end), so
@@ -5496,6 +5514,111 @@ def run_extract_multi(torch, root, trained, scp, device="cuda"):
     return dict(launches), out
 
 
+# Phase 32, training quality: the convergence harness's flagship arm at its
+# full schedule (tf_kaldi_speaker_tpu_torch.validation.convergence).
+QUALITY_SEED = 1
+# one epoch on shuffled speaker labels: a control the bounds must exclude,
+# beside the untrained network
+QUALITY_CONTROL_EPOCHS = 1
+# the quality matrix's pool arms: the dequant at D = 12 (64 chunks of the
+# shortest bucket) and the pooling layer of width 128 in bf16
+QUALITY_KERNEL_SHAPES = {"cm_dequantize": (64, 151, 12), "pooling": (64, 286, 256)}
+
+
+def outside(value, band):
+    """True where ``value`` lies outside ``band`` = (centre, half-width)."""
+    return abs(value - band[0]) > band[1]
+
+
+def check_quality_bounds(summary):
+    """The trained arm inside both bands of JAX's am-softmax f32 rows (the
+    final held-out EER and the final valid loss), every valid loss finite;
+    each control outside at least one of them."""
+    if not np.all(np.isfinite(summary["valid_loss"])):
+        raise AssertionError("quality: valid losses %s" % summary["valid_loss"])
+    for key, value in (("eer", summary["eer"]), ("loss", summary["valid_loss"][-1])):
+        if outside(value, summary[key + "_band"]):
+            raise AssertionError("quality: %s %.4f outside JAX's am-softmax band %.4f +- %.4f"
+                                 % (key, value, *summary[key + "_band"]))
+    for name, c in summary["controls"].items():
+        if not (outside(c["eer"], summary["eer_band"])
+                or outside(c["valid_loss"], summary["loss_band"])):
+            raise AssertionError(
+                "quality: the %s control (EER %.4f, valid loss %.4f) lies inside both bands: "
+                "they do not tell a trained network from it" % (name, c["eer"], c["valid_loss"]))
+
+
+def run_quality(torch, root, flush=None, device="cuda", steps_per_epoch=None):
+    """Phase 32: the convergence corpus, the flagship arm's run as the path
+    ``quality`` and its checks (:func:`check_quality_bounds`) against the
+    untrained network and a shuffled-label run, and (with ``flush``, on
+    the card) the quality matrix's kernel shapes against the plain
+    versions. Returns the path's launches, its shapes and a summary."""
+    from tf_kaldi_speaker_tpu_torch.validation import common, convergence, corpora
+
+    qroot = os.path.join(root, "quality")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        corpora.make_data(qroot)
+    data_s = time.perf_counter() - t0
+    argv = ["run", "--arm", "torch", "--loss", "amsoftmax", "--program", "flagship",
+            "--seed", str(QUALITY_SEED), "--root", qroot, "--device", device]
+    if steps_per_epoch:
+        argv += ["--steps-per-epoch", str(steps_per_epoch)]
+    run = drive(torch, convergence.main, argv)
+    if run["rc"] != 0:
+        raise RuntimeError("validation.convergence run exited %d" % run["rc"])
+    launches = check_launched("quality path (validation.convergence --program flagship)", run,
+                              kernel_wrappers())
+    with open(os.path.join(qroot, "results", "torch_amsoftmax_s%d_flagship.json"
+                           % QUALITY_SEED)) as f:
+        result = json.load(f)
+    bands = {}
+    for key, ref in (("eer", convergence.jax_eers("amsoftmax")),
+                     ("loss", convergence.jax_final_valid_losses("amsoftmax"))):
+        j = common.judge([0.0], ref)
+        bands[key + "_band"] = (j["jax_mean"], j["band"])
+    controls = {}
+    for name, epochs in (("untrained", 0), ("shuffled_labels", QUALITY_CONTROL_EPOCHS)):
+        t1 = time.perf_counter()
+        c = convergence.run_control(qroot, "amsoftmax", QUALITY_SEED, "flagship", device,
+                                    epochs=epochs)
+        c.update(seconds=time.perf_counter() - t1,
+                 eer_outside=outside(c["eer"], bands["eer_band"]),
+                 loss_outside=outside(c["valid_loss"], bands["loss_band"]))
+        controls[name] = c
+    summary = dict(valid_loss=result["valid_loss"], eer=result["eer"],
+                   train_wall_s=result["wall_s"], arm_wall_s=run["wall"], data_s=data_s,
+                   controls=controls, **bands)
+    print("quality (%s): flagship arm seed %d, valid loss by epoch %s (JAX am-softmax f32 "
+          "final %.3f +- %.3f), held-out EER %.2f%% (JAX %.2f%% +- %.2f%%); %.1f s training of "
+          "%.1f s for the arm" % (
+              CARD, QUALITY_SEED, ["%.3f" % v for v in result["valid_loss"]],
+              bands["loss_band"][0], bands["loss_band"][1], 100 * result["eer"],
+              100 * bands["eer_band"][0], 100 * bands["eer_band"][1], result["wall_s"],
+              run["wall"]))
+    for name, c in controls.items():
+        print("quality control %s (%s): valid loss %.3f (%s the band), EER %.2f%% (%s the "
+              "band), %.1f s" % (name, CARD, c["valid_loss"],
+                                 "outside" if c["loss_outside"] else "inside", 100 * c["eer"],
+                                 "outside" if c["eer_outside"] else "inside", c["seconds"]))
+    check_quality_bounds(summary)
+    if flush is not None:
+        g = torch.Generator().manual_seed(2)
+        gdev = torch.Generator(device="cuda").manual_seed(2)
+        r = measure_dequant(torch, g, QUALITY_KERNEL_SHAPES["cm_dequantize"], flush, True)
+        summary["dequant_d12"] = dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                                      plain_ms=r["plain_ms"], max_abs_err=r["max_abs_err"])
+        for key, measure in (("pooling_d256", measure_pooling),
+                             ("pooling_bwd_d256", measure_pooling_bwd)):
+            r = measure(torch, gdev, QUALITY_KERNEL_SHAPES["pooling"], torch.bfloat16, flush,
+                        True)
+            summary[key] = dict(ms=r["ms"], bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                                max_abs_err=r["max_abs_err"])
+    summary["phase_s"] = time.perf_counter() - t0
+    return launches, run["shapes"], summary
+
+
 def run_fisher_then_sre(torch, root):
     """Phases 25 and 29, one after the other (29 starts from 25's stage-1
     output): what runs beside phase 21."""
@@ -5637,12 +5760,16 @@ def main():
     paths["decode"], decode_summary = run_decode_phase(torch, WORK_DIR)
     print("decode summary (%s): %s" % (CARD, json.dumps(decode_summary)))
     replay_mix(torch, {k: v for k, v in sre_shapes.items() if v}, rows, flush, prefix="sre_mix_")
-    del flush
     print("sre recipe summary (%s): %s" % (CARD, json.dumps(sre_summary)))
     paths["interop"], interop_summary = run_interop(torch, WORK_DIR, trained, scp, valid)
     print("interop summary (%s): %s" % (CARD, json.dumps(interop_summary)))
     paths["extract_multi"], multi_summary = run_extract_multi(torch, WORK_DIR, trained, scp)
     print("extract_multi summary (%s): %s" % (CARD, json.dumps(multi_summary)))
+    paths["quality"], quality_shapes, quality_summary = run_quality(torch, WORK_DIR, flush)
+    replay_mix(torch, {k: v for k, v in quality_shapes.items() if v}, rows, flush,
+               prefix="quality_mix_")
+    del flush
+    print("quality summary (%s): %s" % (CARD, json.dumps(quality_summary)))
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

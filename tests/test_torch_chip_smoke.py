@@ -908,3 +908,88 @@ def test_interop_and_multi_phases_on_cpu(tmp_path, monkeypatch):
     assert asked[2:] == [["cm_dequantize", "masked_stats_pooling"]]
     assert not any(k.startswith("every_card") or "_every_card_" in k for k in summary)
     assert cs.MULTI_COSINE_GAP["f32"] == 1e-6
+
+
+def test_quality_phase_is_wired():
+    """Phase 32 runs in main after phase 31, replays its shapes before the
+    kernels line, and is in the docstring; its band is JAX's am-softmax
+    f32 band on the record and its kernel shapes the quality matrix's."""
+    from tf_kaldi_speaker_tpu_torch.validation import common, convergence, quality_matrix
+
+    cs = _chip_smoke()
+    with open(SCRIPT) as f:
+        main_src = f.read().split("def main():", 1)[1].split("if dp_spread:", 1)[1]
+    calls = ['paths["extract_multi"], multi_summary = run_extract_multi(',
+             'paths["quality"], quality_shapes, quality_summary = run_quality(',
+             'prefix="quality_mix_"', "del flush", "print(json.dumps({\"kernels\""]
+    at = [main_src.index(c) for c in calls]
+    assert at == sorted(at)
+    assert "\n32. " in cs.__doc__
+    j = common.judge([0.18], convergence.jax_eers("amsoftmax"))
+    assert round(j["jax_mean"], 4) == 0.1815 and round(j["band"], 4) == 0.015
+    j = common.judge([2.6], convergence.jax_final_valid_losses("amsoftmax"))
+    assert round(j["jax_mean"], 3) == 2.645 and round(j["band"], 3) == 0.226
+    assert cs.QUALITY_KERNEL_SHAPES["cm_dequantize"][2] == 12
+    width = quality_matrix.CFG["tdnn_layer_size"]
+    assert cs.QUALITY_KERNEL_SHAPES["pooling"][2] == 2 * width
+    assert cs.QUALITY_KERNEL_SHAPES["pooling"][0] == quality_matrix.CFG[
+        "num_speakers_per_batch"]
+
+
+@pytest.mark.parametrize("eer, loss, control, ok", [
+    (0.181, 2.6, dict(eer=0.185, valid_loss=5.3), True),    # control fails on its loss
+    (0.181, 2.6, dict(eer=0.21, valid_loss=2.6), True),     # control fails on its EER
+    (0.20, 2.6, dict(eer=0.21, valid_loss=5.3), False),     # trained EER outside
+    (0.181, 3.0, dict(eer=0.21, valid_loss=5.3), False),    # trained loss outside
+    (0.181, 2.6, dict(eer=0.185, valid_loss=2.7), False)])  # control inside both
+def test_check_quality_bounds(eer, loss, control, ok):
+    cs = _chip_smoke()
+    summary = dict(valid_loss=[6.8, 3.0, loss], eer=eer, eer_band=(0.1815, 0.015),
+                   loss_band=(2.645, 0.226), controls={"untrained": dict(eer=0.3,
+                                                                         valid_loss=5.4),
+                                                       "shuffled_labels": control})
+    if ok:
+        cs.check_quality_bounds(summary)
+    else:
+        with pytest.raises(AssertionError):
+            cs.check_quality_bounds(summary)
+    with pytest.raises(AssertionError):
+        cs.check_quality_bounds(dict(summary, valid_loss=[float("nan"), 3.0, loss]))
+
+
+def test_quality_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 32 end to end at a small width and corpus with --device cpu:
+    the flagship arm driven as a path of all three kernels, its result read
+    back, both controls run, the bounds checked on the summary."""
+    import torch
+
+    from tf_kaldi_speaker_tpu_torch.validation import convergence, corpora
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    asked, checked = [], []
+    monkeypatch.setattr(cs, "check_launched",
+                        lambda path, run, names: asked.append(sorted(names)) or run["launches"])
+    monkeypatch.setattr(cs, "check_quality_bounds", checked.append)
+    for k, v in dict(NSPK=8, UTTS=4, TEST_NSPK=2).items():
+        monkeypatch.setattr(corpora, k, v)
+    monkeypatch.setattr(convergence, "BASE_CFG", dict(
+        convergence.BASE_CFG, tdnn_layer_size=16, num_nodes_pooling_layer=24,
+        num_nodes_last_layer=16, num_speakers_per_batch=4, min_segment_len=48,
+        max_segment_len=48, num_buckets=1, num_steps_per_epoch=2))
+    launches, shapes, summary = cs.run_quality(torch, str(tmp_path), device="cpu",
+                                               steps_per_epoch=2)
+    assert asked == [sorted(["cm_dequantize", "masked_stats_pooling",
+                             "masked_stats_pooling_backward"])]
+    assert checked == [summary]
+    assert len(summary["valid_loss"]) == 3 and np.all(np.isfinite(summary["valid_loss"]))
+    assert 0.0 <= summary["eer"] <= 1.0
+    assert sorted(summary["controls"]) == ["shuffled_labels", "untrained"]
+    for c in summary["controls"].values():
+        assert 0.0 <= c["eer"] <= 1.0 and np.isfinite(c["valid_loss"])
+    assert os.path.exists(str(tmp_path / "quality" / "train_shuffled" / "utt2spk"))
+    assert "dequant_d12" not in summary
+    with open(str(tmp_path / "quality" / "results" / "torch_amsoftmax_s1_flagship.json")) as f:
+        result = json.load(f)
+    assert result["program"] == "flagship" and result["dtype"] == "bfloat16"
+    assert result["valid_loss"] == summary["valid_loss"] and result["eer"] == summary["eer"]

@@ -50,7 +50,7 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 98, mods\n"
+        "assert len(mods) >= 110, mods\n"
         "assert {'tf_kaldi_speaker_tpu_torch.kio.native_decode',\n"
         "        'tf_kaldi_speaker_tpu_torch.train.trainer_mi',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_bnf',\n"
@@ -91,7 +91,19 @@ def test_port_imports_without_jax():
         "        'tf_kaldi_speaker_tpu_torch.cli.export_tf_checkpoint',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.extract_softmax_weights',\n"
         "        'tf_kaldi_speaker_tpu_torch.cli.target_logit_curve',\n"
-        "        'tf_kaldi_speaker_tpu_torch.cli.train_insight'} <= set(mods), mods\n"
+        "        'tf_kaldi_speaker_tpu_torch.cli.train_insight',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.corpora',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.common',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.quality_matrix',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.qmatrix_extra',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.synthetic',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.convergence',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.attention',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.ecapa',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.resnet',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.multitask',\n"
+        "        'tf_kaldi_speaker_tpu_torch.validation.decoder_stress'} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tf_kaldi_speaker_tpu'))\n"
         "assert not bad, bad\n"

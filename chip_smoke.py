@@ -6,12 +6,18 @@ Usage, from the root of the repository:
     python3 chip_smoke.py
     python3 chip_smoke.py --mt-step-spread
     python3 chip_smoke.py --dp-spread
+    python3 chip_smoke.py --kernels [SHAPES_JSON]
 
 The second form runs only what the multitask step check's bounds are set
 from (``mt_step_spread``) and checks nothing. The third runs the kernels'
 build, phase 9's training and then phase 27 with its step readings from 4
 states (the trained one and 3 fresh seeds) x 4 batches, with its checks:
-the spread that phase 27's bounds sit in. Phase 27 starts this script
+the spread that phase 27's bounds sit in. The fourth runs phases 1-3 and,
+given the file a whole run writes (``build/chip_smoke/kernel_shapes.json``:
+every mix it replayed), replays those mixes, as 7 does: a copy of this
+script in another tree (say the parent commit's, unpacked with ``git
+archive``) times that tree's kernels with this script's timer on the same
+shapes. Phase 27 starts this script
 again as the processes of its ranks (``--dp-rank DIR`` and
 ``--dp-cli-rank CLI-ARGS``, with the launcher's environment); they are not
 for use by hand.
@@ -21,8 +27,10 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; stop unless CUDA is available;
 2. build the CUDA kernels from tf_kaldi_speaker_tpu_torch/csrc;
 3. hold each kernel against its plain PyTorch version on the card at fixed
-   shapes (dequant also bit for bit against the host codec), and time
-   both (CUDA events, median, L2 evicted) beside the kernel's bound;
+   shapes (dequant also bit for bit against the host codec, the pooling
+   backward also against a second launch, bit for bit), and time both
+   (CUDA events, median, L2 evicted by a read, the host's enqueue behind a
+   spin: ``time_ms``) beside the kernel's bound;
 4. write a flagship-width x-vector model dir (random weights from a seed,
    non-trivial BatchNorm statistics, bf16 compute, fused pooling);
 5. write a compressed ark of 64 synthetic 30-dim utterances;
@@ -389,6 +397,10 @@ ZOO_OVERRIDES = {"resnet34_amsoftmax_m0.20.json": dict(use_fused_pooling=True)}
 EXACT_CHUNK = 256
 EXACT_TOL = dict(rtol=5e-3, atol=5e-4)
 CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main()
+# time_ms's spin before each timed call: SPIN_US at the card's highest SM
+# clock (MHz; the H100 SXM's 1,980 until main() reads the card's)
+SPIN_US = 50
+SM_MHZ = 1980
 
 
 # Peaks of one H100 SXM for the bounds (from NVIDIA's data sheet): HBM3
@@ -446,15 +458,21 @@ def pooling_bwd_cost(b, l, d, esize):
 
 
 def time_ms(torch, fn, flush, runs=50, warmup=5):
-    """Median device time of one call in ms, CUDA events around each call,
-    with the 50 MB L2 evicted before each by a 256 MB memset (the
-    extraction path finds its inputs cold)."""
+    """Median device time of one call in ms, CUDA events around each call.
+
+    Before each call the 50 MB L2 is evicted by a read of the 256 MB
+    ``flush`` buffer (a sum over it, which leaves clean lines: the call's
+    own traffic writes none of them back; the extraction path finds its
+    inputs cold), and then the card spins for about SPIN_US, so that the
+    host's enqueue of fn (the wrapper's checks, its allocation, the ctypes
+    call) is done before the start event is reached on the card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(int(SPIN_US * SM_MHZ))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -581,8 +599,8 @@ def measure_pooling(torch, g, shape, dtype, flush, full):
 
 def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
     """Check the pooling backward at shape (x as in measure_pooling, out
-    from the plain forward, g normal) and time it beside its bound; full:
-    also the plain version."""
+    from the plain forward, g normal), and a second launch bit-equal to the
+    first, and time it beside its bound; full: also the plain version."""
     from tf_kaldi_speaker_tpu_torch.ops.pooling import (
         masked_stats_pooling_backward, masked_stats_pooling_backward_plain,
         masked_stats_pooling_plain)
@@ -592,6 +610,8 @@ def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
     gr = torch.randn(out.shape, generator=g, device=g.device).to(dtype).cuda()
     label = "masked_stats_pooling_backward %s %s" % (str(dtype)[6:], list(shape))
     got = masked_stats_pooling_backward(xt, mask, out, gr)
+    if not torch.equal(got, masked_stats_pooling_backward(xt, mask, out, gr)):
+        raise AssertionError("%s: two launches on one input differ" % label)
     r = dict(max_abs_err=check_close(
         label + " vs plain", got, masked_stats_pooling_backward_plain(xt, mask, out, gr),
         quiet=not full, **BWD_TOL[str(dtype)[6:]]))
@@ -606,33 +626,42 @@ def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
     return r
 
 
+# phase 3's fixed shapes: the dequant at a device-pipe batch and at a
+# bandwidth-bound one; the pooling at the pooling layer of a 400-frame
+# bucket; its backward at the train step's middle bucket (L = 300 frames
+# in), phase 32's pooling width and ResNet34's two short frame axes, with
+# the key that prefixes each one's fields in the kernel's row
+FIXED_DEQUANT = ((32, 400, FEAT_DIM), (256, 1200, FEAT_DIM))
+FIXED_POOLING = (((32, 386, 1500), "bfloat16", ""), ((32, 386, 1500), "float32", "f32_"))
+FIXED_POOLING_BWD = (((64, 286, 1500), "bfloat16", ""), ((64, 286, 1500), "float32", "f32_"),
+                     ((64, 286, 256), "bfloat16", "d256_"),
+                     ((64, 25, 1024), "float32", "f32_l25_"),
+                     ((64, 46, 1024), "float32", "f32_l46_"))
+
+
 def check_kernels(torch, flush):
     """Each kernel against its plain version at fixed shapes: dequant at a
     device-pipe batch [32, 400, 30] and at a bandwidth-bound [256, 1200, 30];
     pooling at the pooling layer of a 400-frame bucket [32, 386, 1500], in
-    bf16 (the flagship's compute dtype, the row's own numbers) and f32.
-    Returns each kernel's JSON row."""
+    bf16 (the flagship's compute dtype, the row's own numbers) and f32; its
+    backward at [64, 286, 1500] in both, [64, 286, 256] bf16 and
+    [64, 25 | 46, 1024] f32. Returns each kernel's JSON row."""
     g = torch.Generator().manual_seed(0)
     rows = {}
-    deq = measure_dequant(torch, g, (32, 400, FEAT_DIM), flush, True)
-    wide = measure_dequant(torch, g, (256, 1200, FEAT_DIM), flush, True)
-    rows["cm_dequantize"] = dict(shape=[32, 400, FEAT_DIM], **deq)
+    deq, wide = (measure_dequant(torch, g, shape, flush, True) for shape in FIXED_DEQUANT)
+    rows["cm_dequantize"] = dict(shape=list(FIXED_DEQUANT[0]), **deq)
     rows["cm_dequantize"].update(
-        {"wide_" + k: v for k, v in dict(shape=[256, 1200, FEAT_DIM], **wide).items()})
-    shape = (32, 386, 1500)
-    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
-        r = measure_pooling(torch, torch.Generator().manual_seed(0), shape, dtype, flush, True)
+        {"wide_" + k: v for k, v in dict(shape=list(FIXED_DEQUANT[1]), **wide).items()})
+    for shape, dtype, key in FIXED_POOLING:
+        r = measure_pooling(torch, torch.Generator().manual_seed(0), shape,
+                            getattr(torch, dtype), flush, True)
         row = rows.setdefault("masked_stats_pooling", {})
-        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=str(dtype)[6:],
-                                                 **r).items()})
-    # the backward at the train step's middle bucket (L = 300 frames in)
-    shape = (64, 286, 1500)
-    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=dtype, **r).items()})
+    for shape, dtype, key in FIXED_POOLING_BWD:
         gdev = torch.Generator(device="cuda").manual_seed(0)
-        r = measure_pooling_bwd(torch, gdev, shape, dtype, flush, True)
+        r = measure_pooling_bwd(torch, gdev, shape, getattr(torch, dtype), flush, True)
         row = rows.setdefault("masked_stats_pooling_backward", {})
-        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=str(dtype)[6:],
-                                                 **r).items()})
+        row.update({key + k: v for k, v in dict(shape=list(shape), dtype=dtype, **r).items()})
     for name in SOURCES:
         row = rows[name]
         row["max_abs_err"] = max(v for k, v in row.items() if k.endswith("max_abs_err"))
@@ -644,6 +673,9 @@ def replay_mix(torch, shapes, rows, flush, prefix="mix_"):
     version on fresh inputs, and the mix's time: sum of count x median
     kernel time, against sum of count x bound (and, for dequant, of count x
     a copy of the same bytes); written to each row under ``prefix``."""
+    REPLAYED[prefix] = {name: [[list(shape), dtype, count]
+                               for (shape, dtype), count in sorted(counter.items())]
+                        for name, counter in shapes.items()}
     g = torch.Generator().manual_seed(1)
     gdev = torch.Generator(device="cuda").manual_seed(1)
     for name, counter in shapes.items():
@@ -669,6 +701,23 @@ def replay_mix(torch, shapes, rows, flush, prefix="mix_"):
                   mix[prefix + "bound_ms"], 100 * mix[prefix + "bound_ms"] / mix[prefix + "ms"],
                   "; copies of the same bytes %.4f ms" % mix[prefix + "copy_ms"]
                   if prefix + "copy_ms" in mix else ""))
+
+
+# the mixes replay_mix replayed in this run, by prefix: {kernel: [[shape,
+# dtype, count], ...]}; main() writes them to SHAPES_JSON, which
+# ``--kernels`` reads back
+REPLAYED = {}
+SHAPES_JSON = os.path.join(WORK_DIR, "kernel_shapes.json")
+
+
+def replay_saved(torch, path, rows, flush):
+    """replay_mix over every mix a full run wrote to ``path``."""
+    with open(path) as f:
+        saved = json.load(f)
+    for prefix, by_name in saved.items():
+        replay_mix(torch, {name: collections.Counter({(tuple(shape), dtype): count
+                                                      for shape, dtype, count in entries})
+                           for name, entries in by_name.items()}, rows, flush, prefix=prefix)
 
 
 def write_model_dir(torch, root):
@@ -5630,12 +5679,15 @@ def main():
 
     import torch
 
-    global CARD
+    global CARD, SM_MHZ
     t_start = time.perf_counter()
-    spread = sys.argv[1:] == ["--mt-step-spread"]
-    dp_spread = sys.argv[1:] == ["--dp-spread"]
-    if sys.argv[1:] and not (spread or dp_spread):
-        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread | --dp-spread]")
+    args = sys.argv[1:]
+    spread = args == ["--mt-step-spread"]
+    dp_spread = args == ["--dp-spread"]
+    kernels_only = args[:1] == ["--kernels"] and len(args) <= 2
+    if args and not (spread or dp_spread or kernels_only):
+        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread | --dp-spread | "
+                         "--kernels [SHAPES_JSON]]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs the port on a GPU")
@@ -5644,6 +5696,9 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip().splitlines()
     CARD = smi[0]
     print(CARD)
+    SM_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
@@ -5672,6 +5727,11 @@ def main():
           % (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
     flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
     rows = check_kernels(torch, flush)
+    if kernels_only:
+        if len(args) == 2:
+            replay_saved(torch, args[1], rows, flush)
+        print("kernel rows (%s): %s" % (CARD, json.dumps(rows)))
+        return
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     os.makedirs(WORK_DIR)
@@ -5770,6 +5830,7 @@ def main():
                prefix="quality_mix_")
     del flush
     print("quality summary (%s): %s" % (CARD, json.dumps(quality_summary)))
+    write_json(SHAPES_JSON, REPLAYED)
 
     # no single PyTorch call computes any of the three functions: library_ms is null
     kernels = []

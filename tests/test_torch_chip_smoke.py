@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -66,15 +67,117 @@ def test_exits_nonzero_without_cuda(where, tmp_path):
 
 
 @pytest.mark.parametrize("args, said", [(["--mt-step-spread"], None),
-                                         (["--bogus"], "usage: python3 chip_smoke.py")])
+                                         (["--bogus"], "usage: python3 chip_smoke.py"),
+                                         (["--kernels"], None),
+                                         (["--kernels", "a.json", "b.json"],
+                                          "usage: python3 chip_smoke.py")])
 def test_arguments_without_cuda(args, said):
-    """The spread form needs the card as the plain form does; any other
-    argument is refused with the usage line."""
+    """The spread and kernel forms need the card as the plain form does;
+    any other argument, or --kernels with more than its one file, is
+    refused with the usage line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, SCRIPT] + args, cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
     assert said is None or said in proc.stderr
+
+
+class _Recorder:
+    """A stub of what time_ms touches: the flush buffer, the card's spin and
+    CUDA events, each call appended to ``calls``."""
+
+    def __init__(self):
+        self.calls = []
+        self.events = 0
+        rec = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                self.name = ("start", "end")[rec.events % 2]
+                rec.events += 1
+
+            def record(self):
+                rec.calls.append(self.name)
+
+            def synchronize(self):
+                rec.calls.append("wait " + self.name)
+
+            def elapsed_time(self, other):
+                assert (self.name, other.name) == ("start", "end")
+                return 0.25
+
+        self.torch = types.SimpleNamespace(cuda=types.SimpleNamespace(
+            Event=Event, synchronize=lambda: rec.calls.append("synchronize"),
+            _sleep=lambda cycles: rec.calls.append(("spin", cycles))))
+
+    def fn(self):
+        self.calls.append("fn")
+
+
+class _Flush:
+    """A flush buffer that records a read (sum) and any other use."""
+
+    def __init__(self, calls):
+        self.__dict__["calls"] = calls
+
+    def sum(self):
+        self.calls.append("read")
+
+    def __getattr__(self, name):
+        self.calls.append("write " + name)
+        return lambda *a, **k: None
+
+    def __setattr__(self, name, value):
+        self.calls.append("write " + name)
+
+    def __setitem__(self, key, value):
+        self.calls.append("write []")
+
+
+def test_time_ms_reads_spins_then_times():
+    """Each timed call: a read of the flush buffer (never written), a spin
+    of about SPIN_US, the start event, the call, the end event; the median
+    of the events' times."""
+    cs = _chip_smoke()
+    rec = _Recorder()
+    assert cs.time_ms(rec.torch, rec.fn, _Flush(rec.calls), runs=3, warmup=2) == 0.25
+    cycles = int(cs.SPIN_US * cs.SM_MHZ)
+    assert 40e-6 <= cycles / (cs.SM_MHZ * 1e6) <= 60e-6
+    assert rec.calls == ["fn", "fn", "synchronize"] + [
+        "read", ("spin", cycles), "start", "fn", "end", "wait end"] * 3
+    assert not any(str(c).startswith("write") for c in rec.calls)
+
+
+def test_replayed_mixes_round_trip(tmp_path, monkeypatch):
+    """replay_mix keeps each mix it replays; the file main() writes from
+    them gives replay_saved the same shapes and counts."""
+    import collections
+
+    cs = _chip_smoke()
+    seen = []
+
+    def measure(torch, g, shape, *args):
+        seen.append(tuple(shape))
+        return dict(max_abs_err=0.0, ms=2.0, bound_ms=1.0)
+
+    for name in ("measure_dequant", "measure_pooling", "measure_pooling_bwd"):
+        monkeypatch.setattr(cs, name, measure)
+    torch = types.SimpleNamespace(Generator=lambda device=None: types.SimpleNamespace(
+        manual_seed=lambda s: None), bfloat16="bf16", float32="f32")
+    shapes = {"masked_stats_pooling_backward": collections.Counter(
+        {((64, 286, 1500), "bfloat16"): 3, ((64, 186, 1500), "bfloat16"): 1}),
+        "cm_dequantize": collections.Counter({((64, 296, 30), "float32"): 4})}
+    rows = {name: dict(max_abs_err=0.0) for name in cs.SOURCES}
+    cs.REPLAYED.clear()
+    cs.replay_mix(torch, shapes, rows, None, prefix="train_mix_")
+    path = cs.write_json(str(tmp_path / "shapes.json"), cs.REPLAYED)
+    again = {name: dict(max_abs_err=0.0) for name in cs.SOURCES}
+    cs.replay_saved(torch, path, again, None)
+    assert again == rows
+    assert rows["masked_stats_pooling_backward"]["train_mix_launches"] == 4
+    assert rows["masked_stats_pooling_backward"]["train_mix_ms"] == 8.0
+    assert seen[:3] == seen[3:]
 
 
 def test_pooling_backward_operations():

@@ -306,6 +306,103 @@ def test_stats_pooling_backward_kernel_hard_masks(cuda, dtype, d, aligned):
                                rtol=2.0 ** -7, atol=1e-7)
 
 
+def _check_bwd_on_card(cuda, shape, dtype, seed):
+    """Inputs made on the card, the plain version run there too (the large
+    shapes would take minutes on the host)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, l, d = shape
+    x = torch.relu(torch.randn(shape, generator=g, device=cuda) * 4.0 + 50.0).to(dt)
+    lengths = torch.randint(0, l + 1, (b,), generator=g, device=cuda)
+    lengths[-1] = l
+    mask = (torch.arange(l, device=cuda)[None, :] < lengths[:, None]).float()
+    out = masked_stats_pooling_plain(x, mask)
+    gr = torch.randn(out.shape, generator=g, device=cuda).to(dt)
+    got = masked_stats_pooling_backward(x, mask, out, gr)
+    want = masked_stats_pooling_backward_plain(x, mask, out, gr)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()), float(diff.max())
+    return x, mask, out, gr, got
+
+
+@pytest.mark.parametrize("dtype, shape", [
+    ("bfloat16", (256, 1200, 1500)),  # more items than blocks: whole rows
+    ("float32", (64, 1, 1500)), ("bfloat16", (64, 1, 1500)), ("bfloat16", (3, 1, 20)),  # L = 1
+    ("float32", (64, 25, 1024)), ("float32", (64, 46, 1024)),  # ResNet34's pooling
+    ("bfloat16", (64, 286, 256)),  # the quality path's pooling width
+])
+def test_stats_pooling_backward_kernel_plans(cuda, dtype, shape):
+    _check_bwd_on_card(cuda, shape, dtype, 15)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1500, 8])
+def test_stats_pooling_backward_valid_frames_in_last_item(cuda, dtype, d):
+    """B = 1, L = 2500: the row is split into ranges, and its only valid
+    frames lie in the last one; n still counts the whole row."""
+    from tf_kaldi_speaker_tpu_torch.ops.pooling import backward_geometry, backward_plan
+
+    dt = getattr(torch, dtype)
+    with torch.cuda.device(cuda):
+        plan = backward_plan(1, 2500, d, backward_geometry(dt))
+    assert plan.splits > 1
+    first = (plan.splits - 1) * plan.frames_per_item
+    x, _ = _ragged(17, 1, 2500, d)
+    x = x.to(dt)
+    mask = torch.zeros(1, 2500)
+    mask[0, first:] = 1.0
+    out, g = _bwd_inputs(x, mask, 18)
+    got = _check_bwd(cuda, x, mask, out, g, dtype).float().cpu()
+    assert not got[0, :first].any() and got[0, first:].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 286, 1500), (64, 25, 1024), (4, 90, 1501)])
+def test_stats_pooling_backward_is_deterministic(cuda, dtype, shape):
+    """Two launches on one input give the same bits (no atomics)."""
+    x, mask, out, gr, got = _check_bwd_on_card(cuda, shape, dtype, 19)
+    assert torch.equal(got, masked_stats_pooling_backward(x, mask, out, gr))
+
+
+def test_stats_pooling_backward_refuses_a_bad_plan(cuda):
+    """The launcher takes only a plan that covers [B, L, D] once with
+    resident blocks; the wrapper's plan it takes."""
+    from tf_kaldi_speaker_tpu_torch.ops.pooling import backward_geometry, backward_plan
+
+    b, l, d = 64, 10, 1500
+    x, mask = _ragged(21, b, l, d)
+    out, g = _bwd_inputs(x, mask, 22)
+    xd, md, od, gd = (t.to(cuda) for t in (x, mask, out, g))
+    gx = torch.empty_like(xd)
+    with torch.cuda.device(cuda):
+        geo = backward_geometry(torch.float32)
+    sms, per_sm = geo.sms, geo.blocks_per_sm
+    lib = _build.load()
+
+    def launch(blocks, items, frames):
+        err = lib.tfks_stats_pooling_bwd_f32(
+            xd.data_ptr(), md.data_ptr(), od.data_ptr(), gd.data_ptr(), gx.data_ptr(),
+            b, l, d, blocks, items, frames, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return err
+
+    plan = backward_plan(b, l, d, geo)
+    assert launch(plan.blocks, plan.items, plan.frames_per_item) == 0
+    np.testing.assert_allclose(gx.cpu().numpy(), masked_stats_pooling_backward_plain(
+        x, mask, out, g).numpy(), **BWD_TOL["float32"])
+    tiles = -(-d // geo.cols)
+    for blocks, items, frames in [
+            (plan.blocks, plan.items + 1, plan.frames_per_item),  # items do not match
+            (0, plan.items, plan.frames_per_item),                # no block
+            (plan.items + 1, plan.items, plan.frames_per_item),   # more blocks than items
+            (1, b * tiles, 0), (1, b * tiles, l + 1),             # no frames, too many
+            (sms * per_sm + 1, b * tiles * l, 1)]:                # more than are resident
+        assert launch(blocks, items, frames) != 0, (blocks, items, frames)
+    assert launch(sms * per_sm, b * tiles * l, 1) == 0
+
+
 def test_stats_pooling_backward_through_autograd(cuda):
     """The train step's path: the Function's backward launches the kernel,
     once per backward, in the forward's dtype."""

@@ -31,17 +31,20 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _INT_PTR = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 # name -> argtypes; pointers, then B, L, D, then the stream. The tests'
 # tfks_stats_pooling_splits takes a bf16 flag first and a frame-split
-# count before the stream.
+# count before the stream; the backward takes its plan (blocks, items,
+# frames per item) before the stream, and its geometry query a bf16 flag
+# and where to write its 4 numbers.
 _ENTRY_POINTS = {
     "tfks_cm_dequantize": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_bf16": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_splits": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
-    "tfks_stats_pooling_bwd_f32": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
-    "tfks_stats_pooling_bwd_bf16": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "tfks_stats_pooling_bwd_f32": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    "tfks_stats_pooling_bwd_bf16": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    "tfks_stats_pooling_bwd_geometry": [_INT, _INT_PTR],
 }
 
 _lock = threading.Lock()

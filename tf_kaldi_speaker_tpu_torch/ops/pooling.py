@@ -6,12 +6,14 @@ standard deviation from one pass of sums (CUDA kernel
 ``csrc/stats_pooling.cu``). The backward is the analytic formula of the JAX
 custom VJP (``_bwd``, jnp there); here it is a CUDA kernel too
 (``csrc/stats_pooling_bwd.cu``), which reads x once and writes the
-gradient once.
+gradient once, from a persistent grid whose plan :func:`backward_plan`
+computes.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -59,6 +61,61 @@ _BWD_KERNELS = {
     torch.float32: "tfks_stats_pooling_bwd_f32",
     torch.bfloat16: "tfks_stats_pooling_bwd_bf16",
 }
+
+
+# A split row's ranges hold this many ring stages of every warp.
+BWD_ITEM_STAGES = 3
+
+BackwardPlan = collections.namedtuple(
+    "BackwardPlan", "blocks items frames_per_item tiles splits")
+# What the kernel reports of itself on a device (csrc/stats_pooling_bwd.cu,
+# tfks_stats_pooling_bwd_geometry): columns of an item's tile, frames of a
+# stage of its ring of copies (every warp's: 32 in bf16, 16 in float32),
+# the device's SMs and the blocks it keeps resident on each.
+BackwardGeometry = collections.namedtuple(
+    "BackwardGeometry", "cols stage_frames sms blocks_per_sm")
+
+
+def backward_plan(b: int, l: int, d: int, geometry: BackwardGeometry) -> BackwardPlan:
+    """The backward kernel's grid for x [b, l, d] on a device where the
+    kernel has ``geometry``.
+
+    Items are (row, tile, range) with the tile fastest, then the frame
+    range: item k is tile k % tiles, range (k // tiles) % splits and row
+    k // (tiles * splits); range s holds frames [s * frames_per_item,
+    min(l, (s + 1) * frames_per_item)), and none is empty. ``blocks`` (all
+    resident: at most sms x blocks_per_sm, at most items) blocks run; block
+    i takes items i, i + blocks, ...
+
+    A row stays one range where rows x tiles give at least two items a
+    block. Otherwise its ranges are BWD_ITEM_STAGES ring stages of every
+    warp long (96 frames in bf16, 48 in float32): each item costs its
+    warps a round trip for its factors and the row's mask sum before they
+    use their first copies, and on the card shorter items lost more to it
+    than they gained in blocks that end together, while longer ones left
+    the last blocks to finish alone (PERF.md, the backward's redesign)."""
+    cols, stage_frames, sms, blocks_per_sm = geometry
+    tiles = -(-d // cols)
+    if b * l * d == 0:
+        return BackwardPlan(0, 0, 0, tiles, 0)
+    cap = sms * blocks_per_sm
+    if cap < 1:
+        raise ValueError("backward_plan: no resident block (%d SMs, %d a SM)"
+                         % (sms, blocks_per_sm))
+    rows = b * tiles
+    frames = l if rows >= 2 * cap else min(l, BWD_ITEM_STAGES * stage_frames)
+    splits = -(-l // frames)
+    items = rows * splits
+    return BackwardPlan(min(cap, items), items, frames, tiles, splits)
+
+
+def backward_geometry(dtype: torch.dtype) -> BackwardGeometry:
+    """The backward kernel's geometry for x of ``dtype`` on the current
+    CUDA device, as the kernel's library reports it (cached there)."""
+    geo = (ctypes.c_int * 4)()
+    err = _build.load().tfks_stats_pooling_bwd_geometry(int(dtype == torch.bfloat16), geo)
+    _build.check(err, "masked_stats_pooling_backward")
+    return BackwardGeometry(*geo)
 
 
 def _check_inputs(what, x, mask, kernels):
@@ -121,10 +178,11 @@ def masked_stats_pooling_backward(
         return gx
     lib = _build.load()
     with torch.cuda.device(x.device):
+        plan = backward_plan(b, l, d, backward_geometry(x.dtype))
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _BWD_KERNELS[x.dtype])(
             x.data_ptr(), mask.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(),
-            b, l, d, stream)
+            b, l, d, plan.blocks, plan.items, plan.frames_per_item, stream)
     _build.check(err, what)
     _build.count_launch(masked_stats_pooling_backward, (b, l, d), str(x.dtype)[6:])
     return gx

@@ -5,14 +5,20 @@ Usage, from the root of the repository:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mt-step-spread
+    python3 chip_smoke.py --mt-epoch-spread
     python3 chip_smoke.py --dp-spread
     python3 chip_smoke.py --kernels [SHAPES_JSON]
 
 The second form runs only what the multitask step check's bounds are set
-from (``mt_step_spread``) and checks nothing. The third runs the kernels'
-build, phase 9's training and then phase 27 with its step readings from 4
-states (the trained one and 3 fresh seeds) x 4 batches, with its checks:
-the spread that phase 27's bounds sit in. The fourth runs phases 1-3 and,
+from (``mt_step_spread``) and checks nothing. The third, likewise, runs
+only the multitask card test's epoch (``tests/torch_mt_tiny.py``) over 8
+config seeds on the CPU and, free-running and in lockstep, on the card
+and under TF32 and bf16 controls (``mt_epoch_spread``): what the test's
+comparison can tell apart at its tolerance. The fourth runs
+the kernels' build, phase 9's training and then phase 27 with its step
+readings from 4 states (the trained one and 3 fresh seeds) x 4 batches,
+with its checks: the spread that phase 27's bounds sit in. The fifth runs
+phases 1-3 and,
 given the file a whole run writes (``build/chip_smoke/kernel_shapes.json``:
 every mix it replayed), replays those mixes, as 7 does: a copy of this
 script in another tree (say the parent commit's, unpacked with ``git
@@ -284,10 +290,17 @@ Phases, each of which raises on failure:
    pooling forward and backward in bf16 at [64, 286, 256]); the path's
    shapes replayed, as in 7.
 
-Phases 25 and then 29 run in a thread beside phase 21 (their work in their
-own processes; each path's shapes are replayed after all three end), so
-that the CLIs' interpreter start-ups overlap: the three recipes' stage
-times are read with another recipe running. Every other phase runs alone.
+The order differs from the numbers in one place. After 20, the CLI work
+of 21, 25, 29 and 26 (their trees and their run.sh stages, every CLI a
+process of its own) runs in threads while this process runs 22, 24 and
+27: 21 in one thread; 25's stage 1 in another, then its stages 2-6 there
+beside 29's stages and 26's in a thread each. When all have ended come
+their checks and lines, 23, 26's checks in this process, the replays of
+the shapes of 21, 22, 24, 25, 27 and 29, then 28 and 30-32 in order. So
+the CLIs' start-ups overlap, and the stage times of 21, 25, 26 and 29 and
+the readings of 22, 24 and 27 (step times, profiles, waits, read timings)
+are taken with the others running; the kernels' times (3, and every
+replay) and the readings of 23, 26's checks and 28-32 are taken alone.
 
 Every measurement line names the card and its power limit as nvidia-smi
 gives them. The line before the last is a JSON object with each kernel's
@@ -629,10 +642,13 @@ def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
 # phase 3's fixed shapes: the dequant at a device-pipe batch and at a
 # bandwidth-bound one; the pooling at the pooling layer of a 400-frame
 # bucket; its backward at the train step's middle bucket (L = 300 frames
-# in), phase 32's pooling width and ResNet34's two short frame axes, with
-# the key that prefixes each one's fields in the kernel's row
+# in); both at phase 32's pooling width and ResNet34's two short frame
+# axes, with the key that prefixes each one's fields in the kernel's row
 FIXED_DEQUANT = ((32, 400, FEAT_DIM), (256, 1200, FEAT_DIM))
-FIXED_POOLING = (((32, 386, 1500), "bfloat16", ""), ((32, 386, 1500), "float32", "f32_"))
+FIXED_POOLING = (((32, 386, 1500), "bfloat16", ""), ((32, 386, 1500), "float32", "f32_"),
+                 ((64, 286, 256), "bfloat16", "d256_"),
+                 ((64, 25, 1024), "float32", "f32_l25_"),
+                 ((64, 46, 1024), "float32", "f32_l46_"))
 FIXED_POOLING_BWD = (((64, 286, 1500), "bfloat16", ""), ((64, 286, 1500), "float32", "f32_"),
                      ((64, 286, 256), "bfloat16", "d256_"),
                      ((64, 25, 1024), "float32", "f32_l25_"),
@@ -644,7 +660,7 @@ def check_kernels(torch, flush):
     device-pipe batch [32, 400, 30] and at a bandwidth-bound [256, 1200, 30];
     pooling at the pooling layer of a 400-frame bucket [32, 386, 1500], in
     bf16 (the flagship's compute dtype, the row's own numbers) and f32; its
-    backward at [64, 286, 1500] in both, [64, 286, 256] bf16 and
+    backward at [64, 286, 1500] in both; both at [64, 286, 256] bf16 and
     [64, 25 | 46, 1024] f32. Returns each kernel's JSON row."""
     g = torch.Generator().manual_seed(0)
     rows = {}
@@ -2711,8 +2727,9 @@ class Beside(threading.Thread):
 
 def run_stages(script, env, stages, d, may_skip=()):
     """``script`` one stage at a time (``stage=stop_stage=N``), each stage's
-    output kept in ``d/stageN.log``; raises on a failed stage, or a skipped
-    one not in ``may_skip``. Returns the stages' seconds and outputs."""
+    output kept in ``d/stageN.log``; raises on a failed stage (with the end
+    of its output), or a skipped one not in ``may_skip``. Returns the
+    stages' seconds and outputs."""
     stage_s, logs = {}, {}
     for stage in stages:
         t0 = time.perf_counter()
@@ -2725,8 +2742,8 @@ def run_stages(script, env, stages, d, may_skip=()):
         with open(os.path.join(d, "stage%d.log" % stage), "w") as f:
             f.write(proc.stdout)
         if proc.returncode != 0:
-            print(proc.stdout[-4000:])
-            raise RuntimeError("%s stage %d exited %d" % (script, stage, proc.returncode))
+            raise RuntimeError("%s stage %d exited %d:\n%s"
+                               % (script, stage, proc.returncode, proc.stdout[-4000:]))
         if "SKIPPING" in proc.stdout and stage not in may_skip:
             raise AssertionError("%s stage %d skipped its work" % (script, stage))
     return stage_s, logs
@@ -2752,14 +2769,16 @@ def read_launch_log(path):
     return launches, shapes, by_module, native
 
 
-def run_recipe(torch, root, srcs, device="cuda"):
-    """Phase 21: the port's run.sh, stages 0-8 one at a time, on the card
-    (``device``). Returns the path's launches and shapes (summed over its
-    processes) and a summary."""
+def recipe_stages(root, srcs, device="cuda"):
+    """Phase 21's CLI work: the corpus trees and the port's run.sh, stages
+    0-8 one at a time, on the card (``device``). It runs in a thread
+    (:class:`Beside`), so it prints nothing; :func:`report_recipe` checks
+    and prints what it returns."""
     t_phase = time.perf_counter()
     d = os.path.join(root, "recipe")
     os.makedirs(d)
     vox1, vox2, seconds = write_vox_trees(d)
+    write_s = time.perf_counter() - t_phase
     with open(RECIPE_SCRIPT) as f:
         script = f.read()
     for old, new in RECIPE_SCRIPT_CUTS:
@@ -2773,11 +2792,6 @@ def run_recipe(torch, root, srcs, device="cuda"):
     patched = os.path.join(d, "run.sh")
     with open(patched, "w") as f:
         f.write(script)
-    print("recipe (%s): the port's run.sh, cut as tests/test_recipe_e2e.py cuts the JAX one: "
-          "configs %s; script %s; corpus %d speakers x %d clips, %.1f s of audio, written in "
-          "%.2f s" % (CARD, RECIPE_CUTS, ["%s -> %s" % c for c in RECIPE_SCRIPT_CUTS],
-                      RECIPE_CORPUS["num_speakers"], RECIPE_CORPUS["utts_per_speaker"], seconds,
-                      time.perf_counter() - t_phase))
     data, exp = os.path.join(d, "data"), os.path.join(d, "exp")
     launch_log = os.path.join(d, "launches.jsonl")
     env = dict(os.environ, data_root=data, exp=exp, device=device, voxceleb1_root=vox1,
@@ -2787,6 +2801,21 @@ def run_recipe(torch, root, srcs, device="cuda"):
                **recipe_configs(d))
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     stage_s, logs = run_stages(patched, env, range(9), d)
+    return dict(data=data, exp=exp, launch_log=launch_log, seconds=seconds, write_s=write_s,
+                stage_s=stage_s, logs=logs, work_s=time.perf_counter() - t_phase)
+
+
+def report_recipe(run):
+    """Phase 21's checks on what :func:`recipe_stages` returned, and its
+    lines. Returns the path's launches and shapes (summed over its
+    processes) and a summary."""
+    t0 = time.perf_counter()
+    data, exp, stage_s, logs = run["data"], run["exp"], run["stage_s"], run["logs"]
+    print("recipe (%s): the port's run.sh, cut as tests/test_recipe_e2e.py cuts the JAX one: "
+          "configs %s; script %s; corpus %d speakers x %d clips, %.1f s of audio, written in "
+          "%.2f s" % (CARD, RECIPE_CUTS, ["%s -> %s" % c for c in RECIPE_SCRIPT_CUTS],
+                      RECIPE_CORPUS["num_speakers"], RECIPE_CORPUS["utts_per_speaker"],
+                      run["seconds"], run["write_s"]))
     # what came out: augmented copies of all four kinds in train_combined,
     # both models, both score files and their EERs
     with open(os.path.join(data, "train_combined", "feats.scp")) as f:
@@ -2808,7 +2837,7 @@ def run_recipe(torch, root, srcs, device="cuda"):
     if len(eers) < 2:
         raise AssertionError("stage 8 reported EERs %s:\n%s" % (eers, logs[8][-2000:]))
     # the kernels of each stage's processes
-    launches, shapes, by_module, _ = read_launch_log(launch_log)
+    launches, shapes, by_module, _ = read_launch_log(run["launch_log"])
     for module in ("train", "finetune"):
         if by_module[module]["cm_dequantize"] <= 0:
             raise AssertionError("stage %s launched cm_dequantize %s times"
@@ -2821,9 +2850,9 @@ def run_recipe(torch, root, srcs, device="cuda"):
           "every CLI its own interpreter): %s s; train_combined %d utterances (augmented %s); "
           "stage 8 EERs %s; the phase %.2f s"
           % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, len(utts), dict(suffixes),
-             eers, time.perf_counter() - t_phase))
+             eers, run["work_s"] + time.perf_counter() - t0))
     summary = dict(stage_s=stage_s, train_combined_utts=len(utts), augmented=dict(suffixes),
-                   eers=eers, audio_s=seconds)
+                   eers=eers, audio_s=run["seconds"])
     return dict(launches), shapes, summary
 
 
@@ -3717,17 +3746,44 @@ def write_fisher_tree(root):
     return data, made["seconds"]
 
 
-def run_fisher_recipe(torch, root, device="cuda"):
-    """Phase 25: the port's Fisher run.sh, stages 1-6 one at a time, on
-    the card. Returns the path's launches and shapes and a summary."""
+def run_cli_chain(root, device="cuda"):
+    """The CLI work of phases 25, 29 and 26, in a thread beside phase 21
+    (:class:`Beside`): the Fisher run.sh's stage 1, then from its output
+    the Fisher stages 2-6 in this thread, and the SRE stages 2-8 and the
+    multitask stages 2-5 in a thread each (stages 2+ of the Fisher script
+    write nothing the other two read). Nothing here prints or runs the
+    port in this process. Returns the three phases' records, for
+    :func:`report_fisher`, :func:`report_sre` and :func:`report_multitask`."""
     t_phase = time.perf_counter()
     d, patched, env, seconds = setup_fisher_recipe(root, device)
+    write_s = time.perf_counter() - t_phase
+    stage_s, logs = run_stages(patched, env, [1], d)
+    sre = Beside(sre_stages, root, device)
+    mt = Beside(multitask_stages, root,
+                os.path.join(env["data_root"], "train_background", "mfcc"), MT_CUTS, device)
+    try:
+        more_s, more_logs = run_stages(patched, env, range(2, 7), d)
+    finally:
+        sre.join()
+        mt.join()
+    stage_s.update(more_s)
+    logs.update(more_logs)
+    fisher = dict(env=env, seconds=seconds, write_s=write_s, stage_s=stage_s, logs=logs,
+                  work_s=time.perf_counter() - t_phase)
+    return fisher, sre.result(), mt.result()
+
+
+def report_fisher(run):
+    """Phase 25: the port's Fisher run.sh, stages 1-6 one at a time on the
+    card (:func:`run_cli_chain`); its checks and lines. Returns the path's
+    launches and shapes and a summary."""
+    t0 = time.perf_counter()
+    env, seconds, stage_s, logs = run["env"], run["seconds"], run["stage_s"], run["logs"]
     print("fisher recipe (%s): the port's run.sh, config cuts %s, variables %s; corpus %d + %d "
           "speakers, %.1f s of 8 kHz audio, written in %.2f s"
           % (CARD, FISHER_CUTS, FISHER_ENV_CUTS, FISHER_CORPUS["background"],
-             FISHER_CORPUS["eval_speakers"], seconds, time.perf_counter() - t_phase))
+             FISHER_CORPUS["eval_speakers"], seconds, run["write_s"]))
     exp, launch_log = env["exp"], env["TFKS_LAUNCH_LOG"]
-    stage_s, logs = run_stages(patched, env, range(1, 7), d)
     for way in ("plda", "cosine"):
         path = os.path.join(exp, "scores_%s.txt" % way)
         with open(path) as f:
@@ -3751,7 +3807,7 @@ def run_fisher_recipe(torch, root, device="cuda"):
     print("fisher recipe stage times on the card (%s; each stage one bash run, every CLI its "
           "own interpreter): %s s; EERs %s; the phase %.2f s"
           % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, eers,
-             time.perf_counter() - t_phase))
+             run["work_s"] + time.perf_counter() - t0))
     summary = dict(fisher_stage_s=stage_s, fisher_eers=eers, fisher_audio_s=seconds,
                    fisher_train_native=dict(native["train"]))
     return dict(launches), shapes, summary
@@ -4173,19 +4229,37 @@ def check_mt_recipe_outputs(exp, data, frames, logs, cfg):
 
 
 def run_multitask_recipe(torch, root, mfcc_dir, device="cuda"):
-    """Phase 26: the port's v3 multitask run.sh, stages 2-5 one at a time,
-    on the card, from the Fisher phase's stage-1 output. Returns the path's
-    launches and a summary."""
+    """Phase 26 whole, in this thread: :func:`multitask_stages` then
+    :func:`report_multitask`."""
+    return report_multitask(torch, multitask_stages(root, mfcc_dir, MT_CUTS, device), device)
+
+
+def multitask_stages(root, mfcc_dir, cuts, device="cuda"):
+    """Phase 26's CLI work: its tree from the Fisher phase's stage-1 output
+    ``mfcc_dir`` and the port's v3 multitask run.sh, stages 2-5 one at a
+    time, on the card. Prints nothing (it runs in a thread in
+    :func:`run_cli_chain`); returns what :func:`report_multitask` reads."""
     t_phase = time.perf_counter()
-    d, patched, env, frames, cfg = setup_multitask_recipe(root, mfcc_dir, MT_CUTS, device)
+    d, patched, env, frames, cfg = setup_multitask_recipe(root, mfcc_dir, cuts, device)
+    write_s = time.perf_counter() - t_phase
+    stage_s, logs = run_stages(patched, env, range(2, 6), d)
+    return dict(env=env, frames=frames, cfg=cfg, cuts=cuts, write_s=write_s, stage_s=stage_s,
+                logs=logs, work_s=time.perf_counter() - t_phase)
+
+
+def report_multitask(torch, run, device="cuda"):
+    """Phase 26: the checks of what :func:`multitask_stages` wrote, then a
+    profiled group, a card-vs-CPU step and the outputs against the CPU in
+    this process. Returns the path's launches and a summary."""
+    t0 = time.perf_counter()
+    env, frames, cfg, stage_s, logs = (run[k] for k in ("env", "frames", "cfg", "stage_s",
+                                                         "logs"))
     print("multitask recipe (%s): the port's v3 run.sh stages 2-5 on the Fisher phase's "
           "stage-1 output (%d utterances, %d-%d frames), config cuts %s, script %s; a synthetic "
           "tri5a model of %d pdfs, written in %.2f s"
-          % (CARD, len(frames), min(frames.values()), max(frames.values()), MT_CUTS,
-             ["%s -> %s" % c for c in MT_SCRIPT_CUTS], 3 * MT_PHONES,
-             time.perf_counter() - t_phase))
+          % (CARD, len(frames), min(frames.values()), max(frames.values()), run["cuts"],
+             ["%s -> %s" % c for c in MT_SCRIPT_CUTS], 3 * MT_PHONES, run["write_s"]))
     data, exp, launch_log = env["data_root"], env["exp"], env["TFKS_LAUNCH_LOG"]
-    stage_s, logs = run_stages(patched, env, range(2, 6), d)
     outputs = check_mt_recipe_outputs(exp, data, frames, logs, cfg)
     launches, _, by_module, native = read_launch_log(launch_log)
     check_no_fallback("multitask recipe, cli.train_mt", dict(native["train_mt"]), "read_submat")
@@ -4212,7 +4286,7 @@ def run_multitask_recipe(torch, root, mfcc_dir, device="cuda"):
     print("multitask recipe stage times on the card (%s; each stage one bash run, every CLI its "
           "own interpreter): %s s; progress losses %s, validation spk/phn %s; the phase %.2f s"
           % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, outputs["progress_losses"],
-             outputs["valid_losses"], time.perf_counter() - t_phase))
+             outputs["valid_losses"], run["work_s"] + time.perf_counter() - t0))
     summary = dict(profile, mt_stage_s=stage_s, mt_outputs=outputs,
                    mt_train_native=dict(native["train_mt"]),
                    mt_extract_one_minus_cosine=worst["sound"]["xv"],
@@ -4285,6 +4359,115 @@ def mt_step_spread(torch, root, mfcc_dir, seeds=tuple(range(8)), batches=(13, 14
               "bf16 at least %.3g; bound %g" % (
                   CARD, len(rows), key, max(r["sound"][key] for r in rows),
                   min(r["tf32"][key] for r in rows), min(r["bf16"][key] for r in rows), bound))
+    return rows
+
+
+def mt_tiny_epoch(torch, data, nnet, cfg, device, dtype=None, tf32=False, starts_from=None,
+                  nudge=0.0):
+    """The multitask card test's epoch (``tests/torch_mt_tiny.py``: MT_TINY
+    on MT_CORPUS, one loader worker) with ``cfg`` on ``device`` from
+    ``data`` (data dir, alignment dir, spklist) into ``nnet``, through the
+    test's ``train_epoch`` (in lockstep with ``starts_from``), in
+    ``dtype`` where given, TF32 on for cuDNN and matmuls when ``tf32``,
+    the initial parameters scaled by 1 + ``nudge`` x N(0, 1) where given:
+    ``train_epoch``'s (losses, start states, variables after each step)."""
+    from torch_mt_tiny import MT_CORPUS, train_epoch
+    from tf_kaldi_speaker_tpu_torch.multitask import TrainerMultiTask
+    from tf_kaldi_speaker_tpu_torch.utils.params import ParamsPlain
+
+    cfg = dict(cfg, compute_dtype=dtype) if dtype else cfg
+    dims = dict(num_speakers=MT_CORPUS["num_speakers"], num_phones=MT_CORPUS["num_phones"])
+    t = TrainerMultiTask(ParamsPlain(**cfg), nnet, dim=MT_CORPUS["dim"], device=device, **dims)
+    t.build("train", MT_CORPUS["dim"], **dims)
+    if nudge:
+        g = torch.Generator().manual_seed(99)
+        with torch.no_grad():
+            for p in t.network_model.parameters():
+                p.mul_(1 + nudge * torch.randn(p.shape, generator=g).to(p.device))
+    backends = torch.backends
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        return train_epoch(t, data, starts_from)
+    finally:
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+
+
+def allclose_excess(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|) over every element of
+    every variable (float64), and the variable where it is: the reading
+    that ``np.testing.assert_allclose(got, want, rtol, atol)`` passes
+    exactly when it is at most 1."""
+    worst = (0.0, None)
+    for path, w in want.items():
+        w64 = w.double()
+        r = float(((got[path].double() - w64).abs() / (atol + rtol * w64.abs())).max())
+        worst = max(worst, (r, "/".join(path[1:])), key=lambda x: x[0])
+    return worst
+
+
+# --mt-epoch-spread's runs, each read against the CPU's epoch: (name, device,
+# dtype, TF32, lockstep, nudge). Free-running: the card twice, its TF32 and
+# bf16 controls, and a CPU run from initial weights nudged by 1e-8 relative
+# (rounding's size). Lockstep (the card test's comparison): each step from
+# the CPU step's start state.
+MT_EPOCH_RUNS = (("sound", "cuda", None, False, False, 0.0),
+                 ("again", "cuda", None, False, False, 0.0),
+                 ("tf32", "cuda", None, True, False, 0.0),
+                 ("bf16", "cuda", "bfloat16", False, False, 0.0),
+                 ("cpu_nudged", "cpu", None, False, False, 1e-8),
+                 ("lockstep", "cuda", None, False, True, 0.0),
+                 ("lockstep_tf32", "cuda", None, True, True, 0.0),
+                 ("lockstep_bf16", "cuda", "bfloat16", False, True, 0.0))
+
+
+def mt_epoch_spread(torch, root, seeds=tuple(range(8)), runs=MT_EPOCH_RUNS):
+    """``python3 chip_smoke.py --mt-epoch-spread``: what the multitask card
+    test's comparison can tell apart. For each config seed, the test's
+    epoch on the CPU and each of ``runs``, read against the CPU's: each
+    step's loss gap, the first step's updates as ``mt_update_cosines``
+    reads them (phase 26's one-step readings), and ``allclose_excess`` at
+    the test's tolerance after each step; then, for each run, the largest
+    excess over the epoch's steps, by seed. Checks nothing; returns the
+    readings."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_mt_tiny import MT_CORPUS, MT_EPOCH_TOL, MT_TINY
+    from tf_kaldi_speaker_tpu_torch.convert import flatten
+    from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
+
+    rows = []
+    for seed in seeds:
+        seed_root = os.path.join(root, "seed%d" % seed)
+        c = make_fake_data_dir(os.path.join(seed_root, "corpus"), **MT_CORPUS)
+        data = (c["data"], c["ali_dir"], c["spklist"])
+        cfg = dict(MT_TINY, seed=seed)
+        cpu_losses, starts, cpu_after = mt_tiny_epoch(
+            torch, data, os.path.join(seed_root, "cpu", "nnet"), cfg, "cpu")
+        before = flatten(starts[0][0])
+        row = {}
+        for name, device, dtype, tf32, lockstep, nudge in runs:
+            losses, _, after = mt_tiny_epoch(
+                torch, data, os.path.join(seed_root, name, "nnet"), cfg, device, dtype, tf32,
+                starts if lockstep else None, nudge)
+            median, (param, worst) = mt_update_cosines(before, after[0], cpu_after[0])
+            row[name] = dict(
+                loss_gaps=[abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)],
+                first_update_one_minus_cosine=median, first_param=[param, worst],
+                excess=[allclose_excess(a, b, **MT_EPOCH_TOL) for a, b in zip(after, cpu_after)])
+            print("mt epoch spread (%s), seed %d, %s vs CPU: loss gaps %s; first step's "
+                  "updates median 1 - cos %.3g, largest %.3g (%s); excess over the test's "
+                  "tolerance after each step %s" % (
+                      CARD, seed, name, ["%.3g" % g for g in row[name]["loss_gaps"]], median,
+                      worst, param, ["%.3g (%s)" % e for e in row[name]["excess"]]))
+        rows.append(row)
+    for name, *_ in runs:
+        worst = [max(e for e, _ in r[name]["excess"]) for r in rows]
+        print("mt epoch spread (%s), %d seeds, %s vs CPU: largest excess over the epoch's steps "
+              "%s: min %.3g, max %.3g; first step's updates median 1 - cos at most %.3g, largest "
+              "%.3g; loss gap at most %.3g" % (
+                  CARD, len(rows), name, ["%.3g" % e for e in worst], min(worst), max(worst),
+                  max(r[name]["first_update_one_minus_cosine"] for r in rows),
+                  max(r[name]["first_param"][1] for r in rows),
+                  max(max(r[name]["loss_gaps"]) for r in rows)))
     return rows
 
 
@@ -5188,10 +5371,11 @@ def check_sre_outputs(exp, logs, counts):
                 eers=eers)
 
 
-def run_sre_recipe(torch, root, device="cuda"):
-    """Phase 29: the port's SRE run.sh, stages 2-8 one at a time, on the
-    card, from the Fisher phase's stage-1 output. Returns the path's
-    launches and shapes and a summary."""
+def sre_stages(root, device="cuda"):
+    """Phase 29's CLI work: the SRE data dirs from the Fisher phase's
+    stage-1 output and the port's SRE run.sh, stages 2-8 one at a time, on
+    the card. Prints nothing (it runs in a thread in :func:`run_cli_chain`);
+    returns what :func:`report_sre` reads."""
     t_phase = time.perf_counter()
     d = os.path.join(root, "sre")
     os.makedirs(d)
@@ -5217,6 +5401,16 @@ def run_sre_recipe(torch, root, device="cuda"):
                TFKS_LAUNCH_LOG=launch_log)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("TFKS_DISABLE_NATIVE", None)
+    stage_s, logs = run_stages(patched, env, range(2, 9), d, may_skip=(2,))
+    return dict(exp=exp, launch_log=launch_log, counts=counts, stage_s=stage_s, logs=logs,
+                work_s=time.perf_counter() - t_phase)
+
+
+def report_sre(run):
+    """Phase 29: the checks of what :func:`sre_stages` wrote, and its lines.
+    Returns the path's launches and shapes and a summary."""
+    t0 = time.perf_counter()
+    exp, counts, stage_s, logs = run["exp"], run["counts"], run["stage_s"], run["logs"]
     c = FISHER_CORPUS
     print("sre recipe (%s): the port's run.sh stages 2-8 from the Fisher phase's stage-1 output "
           "(swbd_sre %d x %d, SRE10/SRE16 %d speakers' %d + %d utterances, %d trials, "
@@ -5224,9 +5418,8 @@ def run_sre_recipe(torch, root, device="cuda"):
           % (CARD, c["background"], SRE_TRAIN_UTTS, c["eval_speakers"],
              c["eval_utts"] // 2, c["eval_utts"] // 2, counts["trials"], SRE_CUTS,
              ["%s -> %s" % cut for cut in SRE_SCRIPT_CUTS]))
-    stage_s, logs = run_stages(patched, env, range(2, 9), d, may_skip=(2,))
     outputs = check_sre_outputs(exp, logs, counts)
-    launches, shapes, by_module, native = read_launch_log(launch_log)
+    launches, shapes, by_module, native = read_launch_log(run["launch_log"])
     if by_module["train"]["cm_dequantize"] <= 0:
         raise AssertionError("sre cli.train launched cm_dequantize %s times"
                              % by_module["train"]["cm_dequantize"])
@@ -5241,7 +5434,7 @@ def run_sre_recipe(torch, root, device="cuda"):
           "interpreter): %s s; EERs %s; Cllr raw %.4f, min %.4f, calibrated %.4f; the phase "
           "%.2f s" % (CARD, {s: round(t, 2) for s, t in stage_s.items()}, outputs["eers"],
                       outputs["cllr_raw"], outputs["min_cllr"], outputs["cllr_calibrated"],
-                      time.perf_counter() - t_phase))
+                      run["work_s"] + time.perf_counter() - t0))
     return dict(launches), shapes, dict(sre_stage_s=stage_s, sre_outputs=outputs)
 
 
@@ -5668,12 +5861,6 @@ def run_quality(torch, root, flush=None, device="cuda", steps_per_epoch=None):
     return launches, run["shapes"], summary
 
 
-def run_fisher_then_sre(torch, root):
-    """Phases 25 and 29, one after the other (29 starts from 25's stage-1
-    output): what runs beside phase 21."""
-    return run_fisher_recipe(torch, root), run_sre_recipe(torch, root)
-
-
 def main():
     import logging
 
@@ -5683,11 +5870,12 @@ def main():
     t_start = time.perf_counter()
     args = sys.argv[1:]
     spread = args == ["--mt-step-spread"]
+    epoch_spread = args == ["--mt-epoch-spread"]
     dp_spread = args == ["--dp-spread"]
     kernels_only = args[:1] == ["--kernels"] and len(args) <= 2
-    if args and not (spread or dp_spread or kernels_only):
-        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread | --dp-spread | "
-                         "--kernels [SHAPES_JSON]]")
+    if args and not (spread or epoch_spread or dp_spread or kernels_only):
+        raise SystemExit("usage: python3 chip_smoke.py [--mt-step-spread | --mt-epoch-spread | "
+                         "--dp-spread | --kernels [SHAPES_JSON]]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs the port on a GPU")
@@ -5710,6 +5898,11 @@ def main():
         d, patched, env, _ = setup_fisher_recipe(root)
         run_stages(patched, env, [1], d)
         mt_step_spread(torch, root, os.path.join(env["data_root"], "train_background", "mfcc"))
+        return
+    if epoch_spread:
+        root = os.path.join(WORK_DIR, "mt_epoch_spread")
+        shutil.rmtree(root, ignore_errors=True)
+        mt_epoch_spread(torch, root)
         return
 
     from tf_kaldi_speaker_tpu_torch.ops import _build
@@ -5790,37 +5983,42 @@ def main():
 
     aug_srcs, paths["augment"], aug_summary = run_augmentation(torch, WORK_DIR, wav_data)
     print("augmentation summary (%s): %s" % (CARD, json.dumps(aug_summary)))
-    # phases 21, 25 and 29 are chains of CLI processes: 25 and then 29 run
-    # beside 21
-    fisher_sre = Beside(run_fisher_then_sre, torch, WORK_DIR)
-    paths["recipe"], recipe_shapes, recipe_summary = run_recipe(torch, WORK_DIR, aug_srcs)
-    ((paths["fisher"], fisher_shapes, fisher_summary),
-     (paths["sre"], sre_shapes, sre_summary)) = fisher_sre.result()
-    replay_mix(torch, {k: v for k, v in recipe_shapes.items() if v}, rows, flush,
-               prefix="recipe_mix_")
+    # the CLI work of phases 21, 25, 29 and 26 runs in threads while this
+    # one runs phases 22, 24 and 27; every replay waits until they end
+    recipe = Beside(recipe_stages, WORK_DIR, aug_srcs)
+    chain = Beside(run_cli_chain, WORK_DIR)
+    try:
+        paths["triplet"], triplet_shapes, triplet_summary = run_triplet(
+            torch, WORK_DIR, train, valid)
+        print("triplet summary (%s): %s" % (CARD, json.dumps(triplet_summary)))
+        paths["mi"], mi_shapes, mi_summary = run_multi_input(torch, WORK_DIR, trained, train,
+                                                             valid)
+        print("multi-input summary (%s): %s" % (CARD, json.dumps(mi_summary)))
+        paths["dp"], dp_shapes, dp_summary = run_data_parallel(torch, WORK_DIR, trained, train,
+                                                               valid)
+        print("data-parallel summary (%s): %s" % (CARD, json.dumps(dp_summary)))
+    finally:
+        recipe.join()
+        chain.join()
+    print("phases 21, 25, 29 and 26's stages ended %.1f s into the script"
+          % (time.perf_counter() - t_start))
+    paths["recipe"], recipe_shapes, recipe_summary = report_recipe(recipe.result())
     print("recipe summary (%s): %s" % (CARD, json.dumps(recipe_summary)))
-    paths["triplet"], triplet_shapes, triplet_summary = run_triplet(torch, WORK_DIR, train, valid)
-    replay_mix(torch, {k: v for k, v in triplet_shapes.items() if v}, rows, flush,
-               prefix="triplet_mix_")
-    print("triplet summary (%s): %s" % (CARD, json.dumps(triplet_summary)))
+    fisher_run, sre_run, mt_run = chain.result()
+    paths["fisher"], fisher_shapes, fisher_summary = report_fisher(fisher_run)
+    print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
+    paths["sre"], sre_shapes, sre_summary = report_sre(sre_run)
+    print("sre recipe summary (%s): %s" % (CARD, json.dumps(sre_summary)))
     paths["native_reader"], native_summary = run_native_reader(torch, WORK_DIR, train, valid)
     print("native reader summary (%s): %s" % (CARD, json.dumps(native_summary)))
-    paths["mi"], mi_shapes, mi_summary = run_multi_input(torch, WORK_DIR, trained, train, valid)
-    replay_mix(torch, {k: v for k, v in mi_shapes.items() if v}, rows, flush, prefix="mi_mix_")
-    print("multi-input summary (%s): %s" % (CARD, json.dumps(mi_summary)))
-    replay_mix(torch, {k: v for k, v in fisher_shapes.items() if v}, rows, flush,
-               prefix="fisher_mix_")
-    print("fisher recipe summary (%s): %s" % (CARD, json.dumps(fisher_summary)))
-    paths["mt"], mt_summary = run_multitask_recipe(
-        torch, WORK_DIR, os.path.join(WORK_DIR, "fisher", "data", "train_background", "mfcc"))
+    paths["mt"], mt_summary = report_multitask(torch, mt_run)
     print("multitask recipe summary (%s): %s" % (CARD, json.dumps(mt_summary)))
-    paths["dp"], dp_shapes, dp_summary = run_data_parallel(torch, WORK_DIR, trained, train, valid)
-    replay_mix(torch, {k: v for k, v in dp_shapes.items() if v}, rows, flush, prefix="dp_mix_")
-    print("data-parallel summary (%s): %s" % (CARD, json.dumps(dp_summary)))
+    for prefix, mix in (("recipe_mix_", recipe_shapes), ("triplet_mix_", triplet_shapes),
+                        ("mi_mix_", mi_shapes), ("fisher_mix_", fisher_shapes),
+                        ("dp_mix_", dp_shapes), ("sre_mix_", sre_shapes)):
+        replay_mix(torch, {k: v for k, v in mix.items() if v}, rows, flush, prefix=prefix)
     paths["decode"], decode_summary = run_decode_phase(torch, WORK_DIR)
     print("decode summary (%s): %s" % (CARD, json.dumps(decode_summary)))
-    replay_mix(torch, {k: v for k, v in sre_shapes.items() if v}, rows, flush, prefix="sre_mix_")
-    print("sre recipe summary (%s): %s" % (CARD, json.dumps(sre_summary)))
     paths["interop"], interop_summary = run_interop(torch, WORK_DIR, trained, scp, valid)
     print("interop summary (%s): %s" % (CARD, json.dumps(interop_summary)))
     paths["extract_multi"], multi_summary = run_extract_multi(torch, WORK_DIR, trained, scp)

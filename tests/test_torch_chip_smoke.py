@@ -67,6 +67,7 @@ def test_exits_nonzero_without_cuda(where, tmp_path):
 
 
 @pytest.mark.parametrize("args, said", [(["--mt-step-spread"], None),
+                                         (["--mt-epoch-spread"], None),
                                          (["--bogus"], "usage: python3 chip_smoke.py"),
                                          (["--kernels"], None),
                                          (["--kernels", "a.json", "b.json"],
@@ -413,20 +414,20 @@ def test_make_mfcc_host_seconds_from_its_log(tmp_path, caplog):
 
 
 def test_new_phases_are_wired():
-    """Phases 20-22 run in main after the wav phase, in that order; each
-    adds its path to the kernels line (augment, recipe, triplet), and the
-    recipe's and the triplet's kernel shapes are replayed."""
+    """Phases 20-22 start in main after the wav phase, in that order (21's
+    stages in a thread); each adds its path to the kernels line (augment,
+    recipe, triplet), and the recipe's and the triplet's kernel shapes are
+    replayed after the thread has ended."""
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
-    calls = ["run_wav_to_score(", "run_augmentation(", "run_recipe(", "run_triplet(",
-             "print(json.dumps({\"kernels\""]
+    calls = ["run_wav_to_score(", "run_augmentation(", "Beside(recipe_stages,", "run_triplet(",
+             "recipe.join()", "report_recipe(recipe.result())", '("recipe_mix_", recipe_shapes)',
+             '("triplet_mix_", triplet_shapes)', "print(json.dumps({\"kernels\""]
     at = [main_src.index(c) for c in calls]
     assert at == sorted(at)
     for path in ("augment", "recipe", "triplet"):
         assert 'paths["%s"]' % path in main_src
-    for prefix in ("recipe_mix_", "triplet_mix_"):
-        assert 'prefix="%s"' % prefix in main_src
     for n in (20, 21, 22):
         assert "\n%d. " % n in cs.__doc__
 
@@ -569,23 +570,23 @@ def test_triplet_phase_configs(tmp_path):
 
 
 def test_phases_23_to_25_are_wired():
-    """The native reader and multi-input phases run in main after the
-    triplet phase, in that order, and the Fisher phase beside the recipe
-    phase before them; each adds its path to the kernels line
-    (native_reader, mi, fisher), the multi-input and Fisher shapes are
-    replayed after them, and the docstring lists them."""
+    """The multi-input phase runs in main after the triplet phase while the
+    recipe's and the Fisher chain's threads run; the Fisher phase's checks
+    and the native reader phase come after both threads have ended, and
+    the multi-input and Fisher shapes are replayed after them; each adds
+    its path to the kernels line (native_reader, mi, fisher), and the
+    docstring lists them."""
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
-    calls = ["Beside(run_fisher_then_sre,", "run_recipe(", "fisher_sre.result()", "run_triplet(",
-             "run_native_reader(", "run_multi_input(", 'prefix="fisher_mix_"',
+    calls = ["Beside(recipe_stages,", "Beside(run_cli_chain,", "run_triplet(",
+             "run_multi_input(", "chain.join()", "chain.result()", "report_fisher(",
+             "run_native_reader(", '("mi_mix_", mi_shapes)', '("fisher_mix_", fisher_shapes)',
              "print(json.dumps({\"kernels\""]
     at = [main_src.index(c) for c in calls]
     assert at == sorted(at)
     for path in ("native_reader", "mi", "fisher"):
         assert 'paths["%s"]' % path in main_src
-    for prefix in ("mi_mix_", "fisher_mix_"):
-        assert 'prefix="%s"' % prefix in main_src
     for n in (23, 24, 25):
         assert "\n%d. " % n in cs.__doc__
 
@@ -724,15 +725,16 @@ def test_native_and_multi_input_phases_on_cpu(tmp_path, monkeypatch, caplog):
 
 
 def test_multitask_phase_is_wired_and_configured():
-    """Phase 26 runs after the Fisher phase from its stage-1 output, adds
-    its path to the kernels line as "mt", and the docstring lists it; the
+    """Phase 26's stages run in the Fisher chain's thread from its stage-1
+    output and its checks in main after the thread has ended; it adds its
+    path to the kernels line as "mt", and the docstring lists it; the
     config is the shipped mt_softmax.json cut in epochs, steps, validation
     batches and loader threads only, the script in its validation split
     only, with 2001 pdfs."""
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
-    at = [main_src.index(c) for c in ("fisher_sre.result()", "run_multitask_recipe(",
+    at = [main_src.index(c) for c in ("chain.join()", "chain.result()", "report_multitask(",
                                       "print(json.dumps({\"kernels\"")]
     assert at == sorted(at)
     assert 'paths["mt"]' in main_src and "\n26. " in cs.__doc__
@@ -862,11 +864,46 @@ def test_mt_step_spread_on_cpu(tmp_path, monkeypatch, capsys):
     assert out.count("mt step spread") == 2 + 4 and "2 readings, param_one_minus_cosine" in out
 
 
+def test_mt_epoch_spread_on_cpu(tmp_path, capsys):
+    """``--mt-epoch-spread``'s reader with every run on the CPU, one seed:
+    the CPU against itself reads 0 free-running, in lockstep and with
+    TF32 asked for; bf16 and the 1e-8 nudge do not, and lockstep keeps
+    bf16's excess under its free-running one; the summary line of each
+    run. ``allclose_excess`` is at most 1 exactly where assert_allclose
+    passes."""
+    import torch
+
+    cs = _chip_smoke()
+    runs = tuple((name, "cpu", *rest) for name, _, *rest in cs.MT_EPOCH_RUNS)
+    rows = cs.mt_epoch_spread(torch, str(tmp_path / "spread"), seeds=(0,), runs=runs)
+    (row,) = rows
+    assert set(row) == {name for name, *_ in cs.MT_EPOCH_RUNS}
+    for name in ("sound", "again", "tf32", "lockstep", "lockstep_tf32"):
+        assert [e for e, _ in row[name]["excess"]] == [0.0] * 4, name
+        assert max(row[name]["loss_gaps"]) == 0
+    assert min(e for e, _ in row["bf16"]["excess"]) > 1
+    assert row["lockstep_bf16"]["excess"][-1][0] < row["bf16"]["excess"][-1][0]
+    assert 0 < row["cpu_nudged"]["excess"][0][0] < 1
+    assert row["cpu_nudged"]["first_update_one_minus_cosine"] < 1e-9
+    out = capsys.readouterr().out
+    assert out.count("mt epoch spread") == 2 * len(runs)
+    want = {("params", "w"): torch.tensor([1.0, -2.0])}
+    got = {("params", "w"): torch.tensor([1.0 + 1.5e-4, -2.0])}
+    excess, where = cs.allclose_excess(got, want, rtol=1e-4, atol=1e-5)
+    assert where == "w" and abs(excess - 1.5e-4 / 1.1e-4) < 1e-3  # 1 + 1.5e-4 in float32
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got[("params", "w")], want[("params", "w")], rtol=1e-4,
+                                   atol=1e-5)
+    assert cs.allclose_excess(want, want, rtol=1e-4, atol=1e-5)[0] == 0
+
+
 def test_decode_and_sre_phases_are_wired():
-    """Phase 29 runs after phase 25 in the thread beside phase 21, and
-    phase 28 alone after the data-parallel phase; they add the paths
-    "decode" and "sre" to the kernels line, the SRE shapes are replayed,
-    the docstring lists both; the SRE phase cuts its script as
+    """Phase 29's stages run in a thread of their own once phase 25's stage
+    1 has ended, beside 25's later stages, and its checks in main after
+    the threads have ended; phase 28 runs alone after the data-parallel
+    phase, the threads and the replays; they add the paths "decode" and
+    "sre" to the kernels line, the SRE shapes are replayed, the docstring
+    lists both; the SRE phase cuts its script as
     tests/test_torch_sre_recipe.py does, and stage 6 decodes whole
     utterances, more than one, with the oracle on their first frames."""
     import inspect
@@ -877,14 +914,16 @@ def test_decode_and_sre_phases_are_wired():
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1]
     main_src = main_src.split("if dp_spread:", 1)[1]
-    calls = ["Beside(run_fisher_then_sre,", "run_recipe(", "fisher_sre.result()",
-             'paths["dp"]', "run_decode_phase(", 'prefix="sre_mix_"',
+    calls = ["Beside(recipe_stages,", "Beside(run_cli_chain,", 'paths["dp"]', "chain.join()",
+             "report_sre(", '("sre_mix_", sre_shapes)', "run_decode_phase(",
              "print(json.dumps({\"kernels\""]
     at = [main_src.index(c) for c in calls]
     assert at == sorted(at)
-    both = inspect.getsource(cs.run_fisher_then_sre)
-    assert both.index("run_fisher_recipe(") < both.index("run_sre_recipe(")
-    assert "Beside(" not in main_src.split("fisher_sre.result()", 1)[1]
+    chain = inspect.getsource(cs.run_cli_chain)
+    at = [chain.index(c) for c in ("[1], d)", "Beside(sre_stages,", "Beside(multitask_stages,",
+                                   "range(2, 7)", "sre.join()", "mt.join()")]
+    assert at == sorted(at)
+    assert "Beside(" not in main_src.split("chain.join()", 1)[1]
     for path in ("decode", "sre"):
         assert 'paths["%s"]' % path in main_src
     for n in (28, 29):
@@ -893,6 +932,56 @@ def test_decode_and_sre_phases_are_wired():
     assert cs.DECODE_ORACLE_FRAMES > 0 and cs.DECODE_UTTS > 1
     assert not hasattr(cs, "DECODE_FRAMES")
     assert cs.DECODE_CALL in open(cs.MT_SCRIPT).read()
+
+
+def test_cli_chain_order_and_join(monkeypatch):
+    """``run_cli_chain`` starts the SRE and multitask stages only after the
+    Fisher stage 1, runs them beside the Fisher stages 2-6, and joins both
+    before it returns or raises."""
+    import threading
+    import time
+
+    cs = _chip_smoke()
+    events, lock = [], threading.Lock()
+
+    def note(what):
+        with lock:
+            events.append(what)
+
+    def stages(script, env, stages, d, may_skip=()):
+        stages = tuple(stages)
+        note(("fisher", stages))
+        if stages != (1,) and env.get("fail"):
+            raise RuntimeError("stage failed")
+        return {s: 0.0 for s in stages}, {s: "" for s in stages}
+
+    def other(name):
+        def run(*args):
+            note((name, "start"))
+            time.sleep(0.2)
+            note((name, "end"))
+            return name
+        return run
+
+    for fail in (False, True):
+        events.clear()
+        env = dict(data_root="data", fail=fail)
+        monkeypatch.setattr(cs, "setup_fisher_recipe",
+                            lambda root, device: ("d", "run.sh", env, 1.0))
+        monkeypatch.setattr(cs, "run_stages", stages)
+        monkeypatch.setattr(cs, "sre_stages", other("sre"))
+        monkeypatch.setattr(cs, "multitask_stages", other("mt"))
+        if fail:
+            with pytest.raises(RuntimeError, match="stage failed"):
+                cs.run_cli_chain("root")
+        else:
+            fisher, sre, mt = cs.run_cli_chain("root")
+            assert (sre, mt) == ("sre", "mt")
+            assert sorted(fisher["stage_s"]) == [1, 2, 3, 4, 5, 6]
+        assert events[0] == ("fisher", (1,))
+        assert {("sre", "end"), ("mt", "end")} <= set(events)
+        assert events.index(("fisher", (2, 3, 4, 5, 6))) < max(
+            events.index(("sre", "end")), events.index(("mt", "end")))
 
 
 def test_decode_phase_on_cpu(tmp_path, monkeypatch):
@@ -944,7 +1033,7 @@ def test_interop_and_multi_phases_are_wired():
     cs = _chip_smoke()
     with open(SCRIPT) as f:
         main_src = f.read().split("def main():", 1)[1].split("if dp_spread:", 1)[1]
-    calls = ['prefix="sre_mix_"', 'paths["interop"], interop_summary = run_interop(',
+    calls = ['("sre_mix_", sre_shapes)', 'paths["interop"], interop_summary = run_interop(',
              'paths["extract_multi"], multi_summary = run_extract_multi(',
              "print(json.dumps({\"kernels\""]
     at = [main_src.index(c) for c in calls]

@@ -26,6 +26,7 @@ from tf_kaldi_speaker_tpu_torch.ops.pooling import (
     masked_stats_pooling_plain,
 )
 from tf_kaldi_speaker_tpu_torch.train.checkpoints import save_checkpoint
+from torch_mt_tiny import MT_CORPUS, MT_EPOCH_TOL, MT_TINY, train_epoch
 
 pytestmark = pytest.mark.gpu
 
@@ -610,31 +611,23 @@ def test_exact_long_on_card_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(out["cuda"][0], out["cuda"][1], rtol=5e-3, atol=5e-4)
 
 
-MT_TINY = dict(seed=0, tdnn_layer_size=16, num_nodes_pooling_layer=24, speaker_dim=16,
-               phone_dim=12, embedding_node="zs_mu_dense", spk_loss_type="softmax",
-               phn_loss_type="softmax", phn_loss_weight=0.2, num_shared_layers=2,
-               phone_kernel_size=[5, 5, 7, 1, 3], phone_layer_size=[16] * 5,
-               phone_dilation_size=[1, 1, 1, 1, 4], phone_left_context=11,
-               phone_right_context=11, num_frames_per_utt=5, learning_rate=0.05,
-               optimizer="momentum", momentum=0.9, weight_l2_regularizer=1e-4,
-               num_steps_per_epoch=4, steps_per_dispatch=2, num_parallel_datasets=2,
-               num_speakers_per_batch=4, min_segment_len=64, max_segment_len=96,
-               valid_max_iterations=2, show_training_progress=2)
-
-
 def test_multitask_on_card_matches_cpu(cuda, tmp_path):
     """The multitask trainer on the card: one float32 epoch of 2 groups of
-    2 steps against the same epoch on the CPU (the group losses and the
-    parameters within PR 8's training tolerance), then valid() and both
-    predicts; nothing on the path launches a kernel of the port (the JAX
+    2 steps against the same epoch on the CPU, in lockstep (``train_epoch``:
+    each card step starts from the variables and momentum trace that the
+    CPU's step started from), the variables after each step within
+    MT_EPOCH_TOL; then valid() and both predicts. Free-running, the two
+    epochs part: 4 float32 steps of this net amplify rounding, so that a
+    nudge of the initial weights by 1e-8 relative moves the CPU's own epoch
+    past that tolerance, while each step from one state stays well inside
+    it and TF32 and bf16 steps do not (``chip_smoke.py --mt-epoch-spread``
+    reads both). Nothing on the path launches a kernel of the port (the JAX
     multitask path pools with the two-pass moments and reads floats)."""
-    from tf_kaldi_speaker_tpu_torch.convert import flatten, variables_of
     from tf_kaldi_speaker_tpu_torch.multitask import TrainerMultiTask
     from tf_kaldi_speaker_tpu_torch.utils.params import ParamsPlain
     from tf_kaldi_speaker_tpu_torch.utils.testdata import make_fake_data_dir
 
-    d = make_fake_data_dir(str(tmp_path / "d"), num_speakers=5, utts_per_speaker=4, dim=D,
-                           min_len=120, max_len=200, with_vad_ali=True, num_phones=7)
+    d = make_fake_data_dir(str(tmp_path / "d"), **MT_CORPUS)
     data = (d["data"], d["ali_dir"], d["spklist"])
     trainers = {}
     for dev in ("cpu", "cuda"):
@@ -644,15 +637,15 @@ def test_multitask_on_card_matches_cpu(cuda, tmp_path):
         trainers[dev] = t
     for fn in (cm_dequantize, masked_stats_pooling, masked_stats_pooling_backward):
         fn.launches = 0
-    for t in trainers.values():
-        t.train(*data, 0.05)
+    _, starts, want = train_epoch(trainers["cpu"], data)
+    _, _, got = train_epoch(trainers["cuda"], data, starts)
     assert sum(fn.launches for fn in (cm_dequantize, masked_stats_pooling,
                                       masked_stats_pooling_backward)) == 0
-    got = flatten(variables_of(trainers["cuda"].network_model))
-    want = flatten(variables_of(trainers["cpu"].network_model))
-    for path, w in want.items():
-        np.testing.assert_allclose(got[path].numpy(), w.numpy(), rtol=2e-4, atol=5e-5,
-                                   err_msg=str(path))
+    assert len(got) == len(want) == MT_TINY["num_steps_per_epoch"]
+    for k, (g, w) in enumerate(zip(got, want)):
+        for path in w:
+            np.testing.assert_allclose(g[path].numpy(), w[path].numpy(),
+                                       err_msg="step %d %s" % (k + 1, path), **MT_EPOCH_TOL)
     vg, vw = trainers["cuda"].valid(*data), trainers["cpu"].valid(*data)
     np.testing.assert_allclose(vg[:2], vw[:2], rtol=2e-4)
     x = np.random.RandomState(0).randn(150, D).astype(np.float32)

@@ -1,10 +1,12 @@
 """Summaries and profiling in the port against the JAX package on the CPU:
 the tfevents encoder and writer byte for byte (time fixed), the JSONL
 record (all but the wall time), the readers, the activation statistics,
-the profiler context, and a streamed epoch that writes summaries every
-save_summary_steps (scalars and per-parameter histograms under the JAX
-names) and a Chrome trace for its profile_steps window."""
+the trainer's profiler window and its spans, and a streamed epoch that
+writes summaries every save_summary_steps (scalars and per-parameter
+histograms under the JAX names) and a Chrome trace for its profile_steps
+window."""
 
+import collections
 import glob
 import json
 import os
@@ -92,11 +94,33 @@ def test_activation_summaries_match_jax():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    with tsummary.profile_trace(str(tmp_path / "profile"), device="cpu"):
-        torch.ones(8).sum()
-    (path,) = glob.glob(str(tmp_path / "profile" / "*.pt.trace.json"))
+    """The trainer's profile_steps window (start_trace / stop_trace) over a
+    streamed epoch of 16 steps in groups of 2 leaves one Chrome trace under
+    <model>/profile that holds the loop's spans: whole groups
+    (``train.group``) and their steps (``train.step``)."""
+    d = make_fake_data_dir(str(tmp_path / "cm"), num_speakers=6, utts_per_speaker=3, dim=10,
+                           min_len=60, max_len=150, seed=5)
+    cfg = dict(seed=3, network_type="tdnn", tdnn_layer_size=8, num_nodes_pooling_layer=12,
+               num_nodes_last_layer=8, pooling_type="statistics_pooling",
+               embedding_node="tdnn6_dense", loss_func="softmax", optimizer="sgd",
+               num_speakers_per_batch=4, num_segments_per_speaker=2, min_segment_len=40,
+               max_segment_len=56, num_steps_per_epoch=16, steps_per_dispatch=2,
+               num_parallel_datasets=1, show_training_progress=0, profile_steps=2,
+               device_decode=True)
+    t = Trainer(ParamsPlain(**cfg), str(tmp_path / "port"), dim=10, num_speakers=6,
+                device="cpu")
+    t.build("train")
+    try:
+        t.train(d["data"], d["spklist"], 0.05)
+    finally:
+        tsummary.reset_spans()
+    (path,) = glob.glob(str(tmp_path / "port" / "profile" / "*.pt.trace.json"))
     with open(path) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(e.get("name") for e in events)
+    # the window opens in group 5's bookkeeping (that group is left out)
+    # and closes in group 7's: groups 6 and 7, two steps each
+    assert names["train.group"] == 2 and names["train.step"] == 4
 
 
 def test_trainer_summaries_and_profile(tmp_path):

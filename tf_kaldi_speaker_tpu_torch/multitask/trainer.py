@@ -47,6 +47,7 @@ from torch.func import functional_call
 from ..data import DataOutOfRange, device_prefetch
 from ..parallel.mesh import all_gather
 from ..train.trainer import VALID_MARGIN_NEUTRAL, Trainer, _group_mean
+from ..utils.summary import span
 from .common import make_phone_masks
 from .data_v2 import KaldiDataRandomQueueV2, KaldiDataSeqQueueV2
 from .model import MultitaskModel
@@ -228,19 +229,23 @@ class TrainerMultiTask(Trainer):
     def _post_group(self, cfg, writer, metrics, K, local_group, t0, step0):
         """The JAX multitask loop's per-group bookkeeping (``:444-463``):
         the progress line, the metrics as summaries, checkpoints; the
-        crossing checks of :meth:`Trainer._post_group`."""
+        crossing checks of :meth:`Trainer._post_group`, each read of device
+        values the span ``train.sync``."""
         gstep = step0 + (local_group + 1) * K
         local_step = local_group * K + K - 1
         show = int(cfg.get("show_training_progress", 100))
         summary_steps = int(cfg.get("save_summary_steps", 0))
         save_every = int(cfg.get("save_checkpoints_steps", cfg["num_steps_per_epoch"]))
         if show and (local_step % show) < K:
-            m = {k: float(v) for k, v in metrics.items()}
+            with span("train.sync"):
+                m = {k: float(v) for k, v in metrics.items()}
             log.info("step %d: spk %.4f phn %.4f acc %.3f/%.3f (%.2f steps/s)",
                      gstep, m["spk_loss"], m["phn_loss"], m["spk_accuracy"],
                      m["phn_accuracy"], (local_step + 1) / (time.time() - t0))
         if writer and gstep // summary_steps > (gstep - K) // summary_steps:
-            writer.scalars(gstep, {k: float(metrics[k]) for k in sorted(metrics)})
+            with span("train.sync"):
+                values = {k: float(metrics[k]) for k in sorted(metrics)}
+            writer.scalars(gstep, values)
         if save_every and gstep // save_every > (gstep - K) // save_every:
             self.save(gstep)
 

@@ -35,6 +35,10 @@ on a mesh of ranks (one process a card, ``parallel/``):
   ``_post_group`` keeps the JAX cadences: progress, summaries
   (``save_summary_steps``, histograms), the profiler window
   (``profile_steps``), checkpoints; a stop poll follows every group.
+  Under a profiler the loop's layers are spans (``utils/summary.span``):
+  ``train.group`` from the ask for a group to its stop poll, inside it
+  ``pool.sample_group``, each ``train.step`` (the host's enqueue of one
+  step) and each ``train.sync`` (a host read of device values).
 - :meth:`Trainer.valid` is ``valid`` (``:1319-1445``): sequential
   batches (``batch_type: "softmax"``) or speaker-major random batches of
   ``num_valid_speakers_per_batch x num_valid_segments_per_speaker``
@@ -97,7 +101,7 @@ from ..ops.cm_dequant import cm_dequantize
 from ..parallel import make_mesh, pad_batch_to_devices, shard_model, sharded_dim
 from ..parallel.mesh import reduce_replicated
 from ..parallel.sharding_rules import gather_named, gather_tree, split_tree
-from ..utils.summary import SummaryWriter, start_trace, stop_trace
+from ..utils.summary import SummaryWriter, span, start_trace, stop_trace
 from . import checkpoints
 
 log = logging.getLogger("tfks_torch.trainer")
@@ -575,16 +579,22 @@ class Trainer:
 
     def _run_epoch(self, cfg, groups, K: int, step0: int) -> None:
         """Drive an epoch's groups: ``_post_group`` after each, a stop poll,
-        the profiler window flushed, a checkpoint at the step reached."""
+        the profiler window flushed, a checkpoint at the step reached. Each
+        group, from the ask for its metrics to its stop poll, is the span
+        ``train.group``, and so is the ask that finds the epoch's end."""
         summary_steps = int(cfg.get("save_summary_steps", 0))
         # one writer per run: rank 0's (the metrics are global)
         writer = SummaryWriter(self.model) if summary_steps and self.mesh.rank == 0 else None
         t0 = time.time()
         try:
-            for local_group, metrics in enumerate(groups):
-                self._post_group(cfg, writer, metrics, K, local_group, t0, step0)
-                if self._should_stop(local_group, self._stop_poll_every):
-                    break
+            for local_group in itertools.count():
+                with span("train.group"):
+                    metrics = next(groups, None)
+                    if metrics is None:
+                        break
+                    self._post_group(cfg, writer, metrics, K, local_group, t0, step0)
+                    if self._should_stop(local_group, self._stop_poll_every):
+                        break
         finally:
             groups.close()
             if self._trace is not None:
@@ -598,10 +608,14 @@ class Trainer:
 
     def _group(self, batches, learning_rate: float) -> Dict[str, torch.Tensor]:
         """K steps on the group's batches, each a tuple (features, labels)
-        or (codes, headers, labels); the metrics' mean."""
-        return self._global_mean(_group_mean([
-            self.train_step_raw(*b, learning_rate) if len(b) == 3
-            else self.train_step(*b, learning_rate) for b in batches]))
+        or (codes, headers, labels); the metrics' mean. Each step is the
+        span ``train.step``."""
+        out = []
+        for b in batches:
+            with span("train.step"):
+                out.append(self.train_step_raw(*b, learning_rate) if len(b) == 3
+                           else self.train_step(*b, learning_rate))
+        return self._global_mean(_group_mean(out))
 
     def _global_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The metrics' mean over the data ranks (one all-reduce)."""
@@ -726,8 +740,9 @@ class Trainer:
                 cur_window = w
                 pool.stage(epoch * C * R + w)
             L = length_rng.choice(buckets)
-            triples = np.stack(pool.sample_group(rng, K, num_speakers, num_segments, L))
-            triples = torch.from_numpy(triples)
+            with span("pool.sample_group", self.device):
+                drawn = pool.sample_group(rng, K, num_speakers, num_segments, L)
+            triples = torch.from_numpy(np.stack(drawn))
             if self.device.type == "cuda":
                 triples = triples.pin_memory()
             starts, utts, labels = triples.to(self.device, non_blocking=True)
@@ -740,9 +755,9 @@ class Trainer:
         log, summaries, checkpoint. Cadences are crossing checks (the step
         advances K at a time; the metrics at a crossing are the group
         mean); the global step is derived on the host, so a group without a
-        crossing does not wait for the device. Rank 0 alone profiles, logs
-        and writes; a histogram of a split array is joined first, on every
-        rank."""
+        crossing does not wait for the device; each read of device values is
+        the span ``train.sync``. Rank 0 alone profiles, logs and writes; a
+        histogram of a split array is joined first, on every rank."""
         gstep = step0 + (local_group + 1) * K
         local_step = local_group * K + K - 1
         show = int(cfg.get("show_training_progress", 100))
@@ -750,10 +765,12 @@ class Trainer:
         profile_steps = int(cfg.get("profile_steps", 0))
         save_every = int(cfg.get("save_checkpoints_steps", cfg["num_steps_per_epoch"]))
         if cfg.get("check_numerics", False):
-            loss = float(metrics["loss"])
+            with span("train.sync"):
+                loss = float(metrics["loss"])
             if not np.isfinite(loss):
-                raise FloatingPointError("Non-finite loss at step %d: %r" % (
-                    gstep, {k: float(v) for k, v in metrics.items()}))
+                with span("train.sync"):
+                    values = {k: float(v) for k, v in metrics.items()}
+                raise FloatingPointError("Non-finite loss at step %d: %r" % (gstep, values))
         if profile_steps and local_group == 10 // K and self._trace is None \
                 and self.mesh.rank == 0:
             self._trace = start_trace(self.device)
@@ -761,23 +778,27 @@ class Trainer:
             stop_trace(self._trace, os.path.join(self.model, "profile"))
             self._trace = None
         if show and (local_step % show) < K:
-            m = {k: float(v) for k, v in metrics.items()}
+            with span("train.sync"):
+                m = {k: float(v) for k, v in metrics.items()}
             log.info("step %d: loss %.4f reg %.4f acc %.3f (%.2f steps/s)",
                      gstep, m["loss"], m["regularization_loss"], m["accuracy"],
                      (local_step + 1) / (time.time() - t0))
         if summary_steps and gstep // summary_steps > (gstep - K) // summary_steps:
-            histograms = None
-            if cfg.get("save_histograms", True) and (writer or self.mesh.model_size > 1):
-                # per-variable histograms (reference trainer.py:431)
-                histograms = gather_named(
-                    {convert.jax_name(name): convert.to_jax_layout(name, p)
-                     for name, p in self._params.items()},
-                    self.mesh, self.mesh.flag_device(self.device))
+            histograms = scalars = None
+            with span("train.sync"):
+                if cfg.get("save_histograms", True) and (writer or self.mesh.model_size > 1):
+                    # per-variable histograms (reference trainer.py:431)
+                    histograms = gather_named(
+                        {convert.jax_name(name): convert.to_jax_layout(name, p)
+                         for name, p in self._params.items()},
+                        self.mesh, self.mesh.flag_device(self.device))
+                if writer:
+                    # the JAX step's metrics, in the order jax.device_get gives them
+                    m = dict(metrics, total_loss=metrics["loss"] + metrics["regularization_loss"]
+                             + metrics["penalty_loss"])
+                    scalars = {k: float(m[k]) for k in sorted(m)}
             if writer:
-                # the JAX step's metrics, in the order jax.device_get gives them
-                m = dict(metrics, total_loss=metrics["loss"] + metrics["regularization_loss"]
-                         + metrics["penalty_loss"])
-                writer.scalars(gstep, {k: float(m[k]) for k in sorted(m)})
+                writer.scalars(gstep, scalars)
                 if histograms is not None:
                     writer.histograms(gstep, {k: v.numpy().ravel()
                                               for k, v in histograms.items()})

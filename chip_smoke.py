@@ -34,7 +34,9 @@ Phases, each of which raises on failure:
 2. build the CUDA kernels from tf_kaldi_speaker_tpu_torch/csrc;
 3. hold each kernel against its plain PyTorch version on the card at fixed
    shapes (dequant also bit for bit against the host codec, the pooling
-   backward also against a second launch, bit for bit), and time both
+   backward and the train-mode BatchNorm's backward also against a second
+   launch, bit for bit; the BatchNorm's four passes at the pool cell's
+   shapes, each also timed alone), and time both
    (CUDA events, median, L2 evicted by a read, the host's enqueue behind a
    spin: ``time_ms``) beside the kernel's bound;
 4. write a flagship-width x-vector model dir (random weights from a seed,
@@ -52,8 +54,9 @@ Phases, each of which raises on failure:
 9. train: ``cli.train`` at flagship width from the device pool (bf16, 2
    epochs of 16 steps in groups of 8, validation after each) on a
    synthetic compressed corpus of 96 speakers (the second main path: the
-   dequant kernel, the pooling forward and the pooling backward must each
-   launch), with every logged loss finite; one ``torch.profiler`` pass over
+   dequant kernel, the pooling forward and the pooling backward and the
+   train-mode BatchNorm's forward and backward must each launch), with
+   every logged loss finite; one ``torch.profiler`` pass over
    a group of 8 pool steps (device busy and idle share, top kernels);
 10. replay every (shape, dtype) each kernel was launched at on the
    training path, as in 7;
@@ -86,7 +89,8 @@ Phases, each of which raises on failure:
    aux losses, ECAPA-TDNN, ResNet34 with ``use_fused_pooling``) as shipped,
    each on its own input branch, cut to 1 epoch of 16 steps in groups of 8,
    4 loader threads and 2 validation batches (each kernel of the path must
-   launch: the dequant everywhere, both pooling kernels for ResNet34); one
+   launch: the dequant and the BatchNorm's everywhere, both pooling kernels
+   for ResNet34); one
    ``torch.profiler`` pass over 8 steps for ECAPA and ResNet34; a card
    float32 step against the CPU's for both; ``cli.extract --device-pipe``
    from each trained dir against a float32 CPU forward of its checkpoint
@@ -138,7 +142,7 @@ Phases, each of which raises on failure:
 22. the triplet family: ``cli.train`` at the flagship's widths (bf16, fused
    pooling, device pool) with ``angular_triplet_loss`` ("hard", AM flavour,
    margin 0.2) over 16 speakers x 4 segments and ``batch_type: end2end``
-   validation at 8 x 4, 16 steps and a checkpoint (all three kernels must
+   validation at 8 x 4, 16 steps and a checkpoint (all five kernels must
    launch); a profiler pass over 8 steps; a float32 step on the card
    against the CPU's; ``generalized_angular_triplet_loss`` with "average"
    centers for an epoch of 8 steps and a ``--cont`` epoch that restores the
@@ -187,8 +191,9 @@ Phases, each of which raises on failure:
    of context, 10 phone frames a row) cut to 1 epoch of 16 steps in groups
    of 8, 2 validation batches and 4 loader threads, the validation split
    cut on a patched copy; every CLI's kernel launches and native reader
-   counts at its exit (no kernel may launch: the JAX multitask path pools
-   with the two-pass moments and reads floats; ``cli.train_mt`` reads
+   counts at its exit (no dequant or pooling kernel may launch: the JAX
+   multitask path pools with the two-pass moments and reads floats; its
+   BatchNorms train on their kernels; ``cli.train_mt`` reads
    natively with no numpy fallback); finite losses, both egs counts, the
    x-vectors, phone posteriors and log-likelihoods of one column a pdf;
    each stage's time; a profiler pass over 8 float32 steps; a float32 step,
@@ -201,8 +206,9 @@ Phases, each of which raises on failure:
    all-reduces on CUDA tensors): the flagship at full width (bf16, fused
    pooling) from the sharded device pool, one shard a rank, a global batch
    of 64 chunks (32 a rank), one epoch of 16 steps in groups of 8 through
-   ``Trainer.train`` (the main path: every rank must launch all three
-   kernels; their shapes replayed, as in 7), the ranks' states bit-equal
+   ``Trainer.train`` (the main path: every rank must launch all five
+   kernels, the BatchNorm's all-reducing their sums over the data group;
+   their shapes replayed, as in 7), the ranks' states bit-equal
    after it, each rank's second epoch's second group under torch.profiler
    (step time, device idle share, the all-reduces' share of the wall); 2
    ranks against 1 on the same global rows and ``model_parallel=2``
@@ -428,6 +434,9 @@ SOURCES = {
                              "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:35"),
     "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch/csrc/stats_pooling_bwd.cu",
                                       "tf_kaldi_speaker_tpu/ops/pooling_pallas.py:100"),
+    # no TPU kernel: flax's nn.BatchNorm, which XLA fuses on the TPU
+    "batch_norm_train": ("tf_kaldi_speaker_tpu_torch/csrc/batchnorm.cu", None),
+    "batch_norm_train_backward": ("tf_kaldi_speaker_tpu_torch/csrc/batchnorm.cu", None),
 }
 # kernel vs plain: dequant within 1e-6 (both round each operation once, so
 # they agree bit for bit; check_dequant also holds the kernel bit for bit
@@ -439,6 +448,10 @@ POOL_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=0.0, rt
 # reassociation; bf16 one ulp, and the float32 noise where the mean and
 # deviation terms cancel
 BWD_TOL = {"float32": dict(atol=1e-6, rtol=1e-5), "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+# train-mode BatchNorm kernels vs plain (float32 inside; the sums in
+# another order): float32 to reassociation, relative to the largest value
+# where the analytic gradient's terms cancel; bf16 one ulp
+BN_TOL = {"float32": dict(atol=1e-5, rtol=1e-4), "bfloat16": dict(atol=2.0 ** -8, rtol=2.0 ** -7)}
 # a float32 train step on the card (TF32 off) against the CPU's: the loss's
 # relative gap (6 runs of the fisher step read 0 to 1.78e-6)
 CPU_GAP = 1e-5
@@ -468,6 +481,18 @@ def pooling_bwd_cost(b, l, d, esize):
     subtract, a multiply-add and a multiply per element) of the pooling
     backward."""
     return 2 * b * l * d * esize + b * l * 4 + 2 * 2 * b * d * esize, 4 * b * l * d
+
+
+def bn_cost(n, esize):
+    """Bytes and operations of the train-mode BatchNorm over n elements, by
+    kernel: the statistics pass reads x (an add and a multiply-add an
+    element), the normalize pass reads x and writes y (a subtract, a
+    multiply and an add); the backward's sums read x and g (an add, a
+    subtract and a multiply-add), its dx pass reads both and writes dx (a
+    subtract, two multiplies and two adds). Per-channel bytes are left
+    out: under a thousandth at the path's shapes."""
+    return {"stats": (n * esize, 2 * n), "normalize": (2 * n * esize, 3 * n),
+            "grad_stats": (2 * n * esize, 3 * n), "grad": (3 * n * esize, 5 * n)}
 
 
 def time_ms(torch, fn, flush, runs=50, warmup=5):
@@ -639,6 +664,94 @@ def measure_pooling_bwd(torch, g, shape, dtype, flush, full):
     return r
 
 
+def bn_inputs(torch, g, shape, dtype, channels_first):
+    """x [B, L, C] on the card (channels-first: the view of a contiguous
+    [B, C, L], as a convolution hands it over), conv-like (mean 0.5,
+    deviation 2, one channel constant), bf16 or float32 scale and bias of
+    x's dtype, running statistics and an incoming gradient in x's layout
+    (as the step's ReLU hands it back)."""
+    b, l, c = shape
+    base = torch.randn((b, c, l) if channels_first else (b, l, c), generator=g, device="cuda")
+    if channels_first:
+        base[:, c // 2] = 0.75
+    else:
+        base[..., c // 2] = 0.75
+    x = (base * 2.0 + 0.5).to(dtype)
+    x = x.transpose(1, 2) if channels_first else x
+    scale = (torch.rand(c, generator=g, device="cuda") + 0.5).to(dtype)
+    bias = torch.randn(c, generator=g, device="cuda").to(dtype)
+    stats = (torch.randn(c, generator=g, device="cuda") * 0.1,
+             torch.rand(c, generator=g, device="cuda") + 0.5)
+    gy = torch.randn(base.shape, generator=g, device="cuda").to(dtype)
+    return x, scale, bias, stats, gy.transpose(1, 2) if channels_first else gy
+
+
+def measure_bn(torch, g, shape, dtype_name, flush, full):
+    """Check the train-mode BatchNorm kernels at shape ((B, L, C), the
+    dtype name with ".channels_first" for that layout) against the plain
+    versions on the card: y, the running statistics and ``stat`` forward,
+    dx, dscale and dbias backward; time the forward (statistics with their
+    finish, normalize) and the backward (sums with their finish, dx)
+    beside their bounds. Returns the forward's row and the backward's;
+    full: also each pass alone and the plain versions."""
+    from tf_kaldi_speaker_tpu_torch.ops import batchnorm as bn
+
+    dtype_s, _, lay = dtype_name.partition(".")
+    dtype = getattr(torch, dtype_s)
+    x, scale, bias, (mean, var), gy = bn_inputs(torch, g, shape, dtype, bool(lay))
+    tol = BN_TOL[dtype_s]
+    label = "batch_norm_train %s %s %s" % (dtype_s, lay or "rows", list(shape))
+    rm, rv = mean.clone(), var.clone()
+    y, stat, _ = bn._forward_cuda(x, scale, bias, rm, rv, 0.99, 1e-3)
+    pm, pv = mean.clone(), var.clone()
+    y0, stat0 = bn.batch_norm_train_plain(x, scale, bias, pm, pv, 0.99, 1e-3)
+    if y.stride() != x.stride():
+        raise AssertionError("%s: y strides %s, x's %s" % (label, y.stride(), x.stride()))
+    fwd = dict(max_abs_err=check_close(label + " y vs plain", y, y0, quiet=not full, **tol))
+    for name, a, b in (("running mean", rm, pm), ("running var", rv, pv), ("stat", stat, stat0)):
+        check_close("%s %s vs plain" % (label, name), a, b, atol=1e-5, rtol=1e-5, quiet=not full)
+    got = bn.batch_norm_train_backward(x, gy, stat, dtype)
+    if not all(torch.equal(a, b) for a, b in zip(got, bn.batch_norm_train_backward(
+            x, gy, stat, dtype))):
+        raise AssertionError("%s: two backward launches on one input differ" % label)
+    want = bn.batch_norm_train_backward_plain(x, gy, stat, dtype)
+    errs = [check_close("%s %s vs plain" % (label, name), a, b, quiet=not full, **dict(
+        tol, atol=tol["atol"] * max(float(b.float().abs().max()), 1.0)))
+        for name, a, b in zip(("dx", "dscale", "dbias"), got, want)]
+    bwd = dict(max_abs_err=max(errs))
+    costs = bn_cost(x.numel(), x.element_size())
+    if full:  # each pass alone, on the wrapper's geometry and workspace
+        launch = bn._Launch(x, (x.data_ptr(), y.data_ptr(), gy.data_ptr(), got[0].data_ptr()))
+        coef = torch.empty((2, shape[-1]), dtype=torch.float32, device="cuda")
+        dx, ds, db = (torch.empty_like(t) for t in got)
+        calls = {"stats": lambda: bn._stats(x, scale, rm, rv, stat, 0.99, 1e-3, launch),
+                 "normalize": lambda: bn._normalize(x, y, stat, bias, launch),
+                 "grad_stats": lambda: bn._grad_stats(x, gy, stat, coef, ds, db, launch),
+                 "grad": lambda: bn._grad(x, gy, dx, stat, coef, launch)}
+    for row, kernels, fn in (
+            (fwd, ("stats", "normalize"), lambda: bn._forward_cuda(x, scale, bias, rm, rv, 0.99,
+                                                                   1e-3)),
+            (bwd, ("grad_stats", "grad"), lambda: bn.batch_norm_train_backward(x, gy, stat,
+                                                                               dtype))):
+        row["ms"] = time_ms(torch, fn, flush)
+        row["bound_ms"], row["bound_by"] = bound_ms(*map(sum, zip(*(costs[k] for k in kernels))))
+        for k in kernels if full else ():
+            row[k + "_ms"] = time_ms(torch, calls[k], flush)
+            row[k + "_bound_ms"] = bound_ms(*costs[k])[0]
+        if full:
+            row["plain_ms"] = time_ms(
+                torch, (lambda: bn.batch_norm_train_plain(x, scale, bias, pm, pv, 0.99, 1e-3))
+                if row is fwd else (lambda: bn.batch_norm_train_backward_plain(x, gy, stat,
+                                                                               dtype)), flush)
+        print("%s%s: kernels %.4f ms, bound %.4f ms (%s): %.1f%% of bound%s" % (
+            label, "" if row is fwd else " backward", row["ms"], row["bound_ms"],
+            row["bound_by"], 100 * row["bound_ms"] / row["ms"], "; %s; plain %.4f ms" % (
+                ", ".join("%s %.4f ms (%.1f%%)" % (
+                    k, row[k + "_ms"], 100 * row[k + "_bound_ms"] / row[k + "_ms"])
+                    for k in kernels), row["plain_ms"]) if full else ""))
+    return fwd, bwd
+
+
 # phase 3's fixed shapes: the dequant at a device-pipe batch and at a
 # bandwidth-bound one; the pooling at the pooling layer of a 400-frame
 # bucket; its backward at the train step's middle bucket (L = 300 frames
@@ -653,6 +766,10 @@ FIXED_POOLING_BWD = (((64, 286, 1500), "bfloat16", ""), ((64, 286, 1500), "float
                      ((64, 286, 256), "bfloat16", "d256_"),
                      ((64, 25, 1024), "float32", "f32_l25_"),
                      ((64, 46, 1024), "float32", "f32_l46_"))
+# the train-mode BatchNorm at the pool cell's middle bucket (L = 300
+# frames in): tdnn1-3 (channels-first), tdnn5 (rows) and tdnn6-7
+FIXED_BN = (((256, 286, 512), "bfloat16.channels_first", ""),
+            ((256, 286, 1500), "bfloat16", "d1500_"), ((256, 1, 512), "bfloat16", "utt_"))
 
 
 def check_kernels(torch, flush):
@@ -661,7 +778,8 @@ def check_kernels(torch, flush):
     pooling at the pooling layer of a 400-frame bucket [32, 386, 1500], in
     bf16 (the flagship's compute dtype, the row's own numbers) and f32; its
     backward at [64, 286, 1500] in both; both at [64, 286, 256] bf16 and
-    [64, 25 | 46, 1024] f32. Returns each kernel's JSON row."""
+    [64, 25 | 46, 1024] f32; the train-mode BatchNorm's forward and backward
+    at the pool cell's shapes (FIXED_BN). Returns each kernel's JSON row."""
     g = torch.Generator().manual_seed(0)
     rows = {}
     deq, wide = (measure_dequant(torch, g, shape, flush, True) for shape in FIXED_DEQUANT)
@@ -678,6 +796,12 @@ def check_kernels(torch, flush):
         r = measure_pooling_bwd(torch, gdev, shape, getattr(torch, dtype), flush, True)
         row = rows.setdefault("masked_stats_pooling_backward", {})
         row.update({key + k: v for k, v in dict(shape=list(shape), dtype=dtype, **r).items()})
+    for shape, dtype, key in FIXED_BN:
+        gdev = torch.Generator(device="cuda").manual_seed(0)
+        for name, r in zip(("batch_norm_train", "batch_norm_train_backward"),
+                           measure_bn(torch, gdev, shape, dtype, flush, True)):
+            row = rows.setdefault(name, {})
+            row.update({key + k: v for k, v in dict(shape=list(shape), dtype=dtype, **r).items()})
     for name in SOURCES:
         row = rows[name]
         row["max_abs_err"] = max(v for k, v in row.items() if k.endswith("max_abs_err"))
@@ -699,6 +823,9 @@ def replay_mix(torch, shapes, rows, flush, prefix="mix_"):
         for (shape, dtype), count in sorted(counter.items()):
             if name == "cm_dequantize":
                 r = measure_dequant(torch, g, shape, flush, False)
+            elif name.startswith("batch_norm_train"):
+                r = measure_bn(torch, gdev, shape, dtype, flush, False)[
+                    name == "batch_norm_train_backward"]
             elif name == "masked_stats_pooling":
                 r = measure_pooling(torch, gdev, shape, getattr(torch, dtype), flush, False)
             else:
@@ -931,13 +1058,17 @@ def write_corpus(root):
 
 
 def kernel_wrappers():
-    """The three kernel wrappers by name; each counts its launches."""
+    """The five kernel wrappers by name; each counts its launches."""
+    from tf_kaldi_speaker_tpu_torch.ops.batchnorm import (
+        batch_norm_train, batch_norm_train_backward)
     from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize
     from tf_kaldi_speaker_tpu_torch.ops.pooling import (
         masked_stats_pooling, masked_stats_pooling_backward)
 
     return {"cm_dequantize": cm_dequantize, "masked_stats_pooling": masked_stats_pooling,
-            "masked_stats_pooling_backward": masked_stats_pooling_backward}
+            "masked_stats_pooling_backward": masked_stats_pooling_backward,
+            "batch_norm_train": batch_norm_train,
+            "batch_norm_train_backward": batch_norm_train_backward}
 
 
 def write_json(path, obj):
@@ -1064,7 +1195,7 @@ def group_times(marks, n):
 
 def run_training(torch, root, train, valid):
     """cli.train from the device pool (the training path). Returns the
-    launches and shapes of the three kernels on this path, the model dir
+    launches and shapes of the five kernels on this path, the model dir
     and the second epoch's step time."""
     from tf_kaldi_speaker_tpu_torch.cli import train as cli_train
 
@@ -1618,10 +1749,11 @@ def zoo_config(name):
 
 def zoo_kernels(cfg):
     """The kernels a zoo config's training path must launch: the dequant on
-    either input branch (the pool's gather or ``device_decode``), and the
-    pooling forward and backward where the statistics pooling is fused."""
+    either input branch (the pool's gather or ``device_decode``), the
+    train-mode BatchNorm's, and the pooling forward and backward where the
+    statistics pooling is fused."""
     fused = cfg.get("use_fused_pooling", False) and cfg["pooling_type"] == "statistics_pooling"
-    return ["cm_dequantize"] + (
+    return ["cm_dequantize", "batch_norm_train", "batch_norm_train_backward"] + (
         ["masked_stats_pooling", "masked_stats_pooling_backward"] if fused else [])
 
 
@@ -1725,7 +1857,8 @@ def extract_zoo(torch, name, model, scp, root):
                                           model, "scp:" + scp, "ark,scp:%s.ark,%s.scp" % (out, out)])
     if run["rc"] != 0:
         raise RuntimeError("cli.extract from %s exited %d" % (model, run["rc"]))
-    kernels = ["cm_dequantize"] + zoo_kernels(cfg)[1:2]  # the backward runs in training only
+    # the backward and the train-mode BatchNorm run in training only
+    kernels = [k for k in zoo_kernels(cfg) if k in ("cm_dequantize", "masked_stats_pooling")]
     check_launched("zoo extraction %s (cli.extract --device-pipe, float32)"
                    % name[:-len(".json")], run, kernels)
     got = dict(read_vec_flt_scp(out + ".scp"))
@@ -2615,7 +2748,10 @@ WRAPPERS = {"cm_dequantize": ("tf_kaldi_speaker_tpu_torch.ops.cm_dequant", "cm_d
             "masked_stats_pooling": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
                                      "masked_stats_pooling"),
             "masked_stats_pooling_backward": ("tf_kaldi_speaker_tpu_torch.ops.pooling",
-                                              "masked_stats_pooling_backward")}
+                                              "masked_stats_pooling_backward"),
+            "batch_norm_train": ("tf_kaldi_speaker_tpu_torch.ops.batchnorm", "batch_norm_train"),
+            "batch_norm_train_backward": ("tf_kaldi_speaker_tpu_torch.ops.batchnorm",
+                                          "batch_norm_train_backward")}
 # (module, class or None, function): each call's seconds summed under the
 # function's name, in whatever thread it runs
 TIMED = (("tf_kaldi_speaker_tpu_torch.backend.decoder", "WfstDecoder", "decode_lattice"),
@@ -4266,8 +4402,9 @@ def report_multitask(torch, run, device="cuda"):
     fallbacks = {m: c["fallback"] for m, c in native.items() if c.get("fallback")}
     if fallbacks:
         raise AssertionError("multitask recipe: numpy fallbacks by CLI %s" % fallbacks)
-    # the JAX multitask path pools with the two-pass moments and reads floats
-    if sum(launches.values()):
+    # the JAX multitask path pools with the two-pass moments and reads
+    # floats: no dequant or pooling kernel; its BatchNorms train on theirs
+    if any(c for n, c in launches.items() if not n.startswith("batch_norm_train")):
         raise AssertionError("the multitask path launched %s" % dict(launches))
     print("multitask recipe kernel launches (every process): %s; native reader counts by CLI: "
           "%s" % (json.dumps(dict(launches)), json.dumps({m: dict(c) for m, c in native.items()
@@ -6030,7 +6167,9 @@ def main():
     print("quality summary (%s): %s" % (CARD, json.dumps(quality_summary)))
     write_json(SHAPES_JSON, REPLAYED)
 
-    # no single PyTorch call computes any of the three functions: library_ms is null
+    # the port calls no single PyTorch function that computes any of them
+    # (the BatchNorm's would be F.batch_norm, whose momentum and variance
+    # differ): library_ms is null
     kernels = []
     for name, (src, rep) in SOURCES.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}

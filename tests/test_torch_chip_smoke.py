@@ -301,7 +301,7 @@ def test_zoo_configs_are_the_recipes():
         assert "compute_dtype" not in cfg and cfg["num_speakers_per_batch"] == 64
         kinds.add((cfg.get("network_type"), cfg["pooling_type"],
                    tuple(cfg.get("aux_loss_func", ())), bool(cfg.get("device_pool"))))
-        want = ["cm_dequantize"]
+        want = ["cm_dequantize", "batch_norm_train", "batch_norm_train_backward"]
         if name.startswith("resnet34"):
             assert cfg["use_fused_pooling"] and over == dict(use_fused_pooling=True)
             want += ["masked_stats_pooling", "masked_stats_pooling_backward"]
@@ -529,7 +529,8 @@ def test_recipe_phase_pieces(tmp_path, monkeypatch):
     recs = [json.loads(line) for line in log.read_text().splitlines()]
     assert [r["module"] for r in recs] == ["tf_kaldi_speaker_tpu_torch.cli.fix_data_dir"] * 2
     assert all(r["launches"] == {"cm_dequantize": 0, "masked_stats_pooling": 0,
-                                 "masked_stats_pooling_backward": 0} for r in recs)
+                                 "masked_stats_pooling_backward": 0, "batch_norm_train": 0,
+                                 "batch_norm_train_backward": 0} for r in recs)
 
 
 def test_triplet_phase_configs(tmp_path):
@@ -1151,7 +1152,7 @@ def test_check_quality_bounds(eer, loss, control, ok):
 
 def test_quality_phase_on_cpu(tmp_path, monkeypatch):
     """Phase 32 end to end at a small width and corpus with --device cpu:
-    the flagship arm driven as a path of all three kernels, its result read
+    the flagship arm driven as a path of all five kernels, its result read
     back, both controls run, the bounds checked on the summary."""
     import torch
 
@@ -1172,7 +1173,8 @@ def test_quality_phase_on_cpu(tmp_path, monkeypatch):
     launches, shapes, summary = cs.run_quality(torch, str(tmp_path), device="cpu",
                                                steps_per_epoch=2)
     assert asked == [sorted(["cm_dequantize", "masked_stats_pooling",
-                             "masked_stats_pooling_backward"])]
+                             "masked_stats_pooling_backward", "batch_norm_train",
+                             "batch_norm_train_backward"])]
     assert checked == [summary]
     assert len(summary["valid_loss"]) == 3 and np.all(np.isfinite(summary["valid_loss"]))
     assert 0.0 <= summary["eer"] <= 1.0

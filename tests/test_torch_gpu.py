@@ -8,6 +8,9 @@ is not installed:
 
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from tf_kaldi_speaker_tpu_torch.extract.device_pipe import DevicePipeExtractor
 from tf_kaldi_speaker_tpu_torch.kio import ArkScpWriter, decode_cm_codes, read_codes_scp
 from tf_kaldi_speaker_tpu_torch.models.tdnn import EntireNetwork
 from tf_kaldi_speaker_tpu_torch.ops import _build
+from tf_kaldi_speaker_tpu_torch.ops import batchnorm as ops_bn
 from tf_kaldi_speaker_tpu_torch.ops.cm_dequant import cm_dequantize, cm_dequantize_plain
 from tf_kaldi_speaker_tpu_torch.ops.pooling import (
     masked_stats_pooling,
@@ -655,3 +659,207 @@ def test_multitask_on_card_matches_cpu(cuda, tmp_path):
                                trainers["cpu"].predict_speaker(x), rtol=2e-4, atol=5e-5)
     np.testing.assert_allclose(trainers["cuda"].predict_phone(x),
                                trainers["cpu"].predict_phone(x), rtol=2e-4, atol=5e-5)
+
+
+# ---------------------------------------------------------------- train-mode BatchNorm
+
+def _bn_case(cuda, shape, dtype, channels_first, seed, param_dtype=None):
+    """x of ``shape`` [B, ..., C] on the card (channels-first: the view of
+    a contiguous [B, C, ...], as a convolution hands it over), parameters,
+    running statistics and an incoming gradient. Conv-like values: mean
+    0.5, deviation 2, one channel constant."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    if channels_first:
+        base = torch.randn((shape[0], c) + tuple(shape[1:-1]), generator=g, device=cuda)
+        base[:, c // 2] = 0.75
+        x = (base * 2.0 + 0.5).to(dtype).movedim(1, -1)
+    else:
+        x = torch.randn(shape, generator=g, device=cuda)
+        x[..., c // 2] = 0.75
+        x = (x * 2.0 + 0.5).to(dtype)
+    p = param_dtype or dtype
+    scale = (torch.rand(c, generator=g, device=cuda) + 0.5).to(p)
+    bias = torch.randn(c, generator=g, device=cuda).to(p)
+    mean = torch.randn(c, generator=g, device=cuda) * 0.1
+    var = torch.rand(c, generator=g, device=cuda) + 0.5
+    gy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    assert ops_bn.layout(x) == (ops_bn.CHANNELS_FIRST if channels_first else ops_bn.ROWS)
+    return x, scale, bias, mean, var, gy
+
+
+def _bn_run(fn, x, scale, bias, mean, var, gy, eps):
+    """y, the moved running statistics and the three gradients of ``fn``
+    (batch_norm_train, or the plain forward under autograd)."""
+    xr, sr, br = (t.detach().clone().requires_grad_(True) for t in (x, scale, bias))
+    rm, rv = mean.clone(), var.clone()
+    y = fn(xr, sr, br, rm, rv, 0.99, eps)
+    grads = torch.autograd.grad(y, (xr, sr, br), gy)
+    return (y.detach(), rm, rv) + grads
+
+
+def _bn_plain(x, scale, bias, rm, rv, momentum, eps):
+    return ops_bn.batch_norm_train_plain(x, scale, bias, rm, rv, momentum, eps)[0]
+
+
+# (shape, dtype, channels-first, eps): the flagship's bf16 layers at the
+# pool cell's shapes (tdnn1-3 channels-first, tdnn4-5 rows, tdnn6-7),
+# ResNet34's float32 channels-last maps and ECAPA's float32 channels-first
+# convolutions at flax's eps, and odd widths (the 8-byte and one-element
+# accesses, a tile and a run cut short)
+BN_CASES = [((256, 286, 512), "bfloat16", True, 1e-3), ((256, 286, 1500), "bfloat16", False, 1e-3),
+            ((256, 512), "bfloat16", False, 1e-3), ((64, 25, 10, 256), "float32", False, 1e-5),
+            ((32, 198, 512), "float32", True, 1e-5), ((5, 37, 33), "bfloat16", True, 1e-3),
+            ((5, 37, 33), "bfloat16", False, 1e-3), ((3, 41, 1500), "float32", True, 1e-3),
+            ((7, 13, 6), "float32", False, 1e-3), ((2, 3, 5, 22), "bfloat16", True, 1e-5)]
+
+
+@pytest.mark.parametrize("shape, dtype, channels_first, eps", BN_CASES)
+def test_batch_norm_train_kernels_match_the_plain_path(cuda, shape, dtype, channels_first, eps):
+    """y, the running statistics, dx, dscale and dbias against autograd of
+    the plain forward on the card: float32 to the order of the sums; bf16
+    one ulp where both round a float32 value. y and dx keep x's strides."""
+    dt = getattr(torch, dtype)
+    case = _bn_case(cuda, shape, dt, channels_first, 31)
+    x = case[0]
+    n = ops_bn.batch_norm_train.launches, ops_bn.batch_norm_train_backward.launches
+    got = _bn_run(ops_bn.batch_norm_train, *case, eps)
+    want = _bn_run(_bn_plain, *case, eps)
+    torch.cuda.synchronize()
+    assert (ops_bn.batch_norm_train.launches, ops_bn.batch_norm_train_backward.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert got[0].stride() == x.stride() and got[3].stride() == x.stride()
+    _bn_compare(got, want, dt == torch.float32)
+
+
+def _bn_compare(got, want, f32):
+    """_bn_run's six results against the plain path's: float32 to the order
+    of the sums; bf16 one ulp where both round a float32 value."""
+    for name, a, b in zip(("y", "running mean", "running var", "dx", "dscale", "dbias"),
+                          got, want):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        if name.startswith("running"):
+            tol = dict(rtol=1e-5, atol=1e-6)
+        elif name in ("dx", "dscale", "dbias"):
+            # the analytic gradient against autograd's chain: float32 noise
+            # where the mean's and the variance's terms cancel
+            tol = dict(rtol=1e-4 if f32 else 2.0 ** -7, atol=(1e-5 if f32 else 2.0 ** -8) * scale)
+        else:
+            tol = dict(rtol=1e-5, atol=1e-5) if f32 else dict(rtol=2.0 ** -7, atol=1e-6)
+        torch.testing.assert_close(a, b, msg=lambda m: "%s: %s" % (name, m), **tol)
+
+
+# (shape, dtype, channels-first, eps) of the two-rank test: ECAPA-like
+# float32 channels-first, and bf16 rows with float32 parameters
+BN_GROUP_CASES = [((64, 50, 96), "float32", True, 1e-5), ((64, 37, 40), "bfloat16", False, 1e-3)]
+
+
+def _bn_group_rank(rank, port, case):
+    """One rank of the two-rank test: gloo on the one card, half the batch,
+    the kernels over the group against the plain forward over the whole
+    batch (dscale and dbias summed over the ranks first)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port, world_size=2,
+                            rank=rank)
+    try:
+        shape, dtype, channels_first, eps = BN_GROUP_CASES[case]
+        dt = getattr(torch, dtype)
+        x, scale, bias, mean, var, gy = _bn_case(torch.device("cuda"), shape, dt,
+                                                 channels_first, 34, torch.float32)
+        want = _bn_run(_bn_plain, x, scale, bias, mean, var, gy, eps)
+        rows = slice(rank * shape[0] // 2, (rank + 1) * shape[0] // 2)
+        n = ops_bn.batch_norm_train.launches, ops_bn.batch_norm_train_backward.launches
+        got = list(_bn_run(lambda *a: ops_bn.batch_norm_train(*a, group=dist.group.WORLD),
+                           x[rows], scale, bias, mean, var, gy[rows], eps))
+        assert (ops_bn.batch_norm_train.launches,
+                ops_bn.batch_norm_train_backward.launches) == (n[0] + 1, n[1] + 1)
+        assert got[0].stride() == x[rows].stride()
+        for i in (4, 5):
+            dist.all_reduce(got[i])
+        _bn_compare(got, [want[0][rows], want[1], want[2], want[3][rows], want[4], want[5]],
+                    dt == torch.float32)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", range(len(BN_GROUP_CASES)))
+def test_batch_norm_train_kernels_over_a_group_of_two(cuda, case):
+    """The data-parallel BatchNorm: two ranks on the card (gloo), half the
+    batch each, all-reduce their sums between the kernels' passes; each
+    rank's y and dx, the running statistics and the ranks' summed dscale
+    and dbias match the plain forward over the whole batch."""
+    _build.load()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = %r; import test_torch_gpu as t; "
+            "t._bn_group_rank(int(sys.argv[1]), %d, %d)" % ([here, os.path.dirname(here)],
+                                                            port, case))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(o[-3000:] for o in outs)
+
+
+@pytest.mark.parametrize("shape, channels_first", [((256, 286, 512), True),
+                                                   ((256, 286, 1500), False)])
+def test_batch_norm_train_kernels_are_deterministic(cuda, shape, channels_first):
+    """Two runs give the same bits: each split's sums in a fixed order, the
+    splits added in order by whichever block comes last."""
+    case = _bn_case(cuda, shape, torch.bfloat16, channels_first, 32)
+    a, b = (_bn_run(ops_bn.batch_norm_train, *case, 1e-3) for _ in range(2))
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_batch_norm_train_plain_backward_on_card(cuda):
+    """The kernels' backward against batch_norm_train_backward_plain (its
+    arithmetic, term for term), bf16 x with float32 parameters, and g in
+    another layout than x (copied into x's first)."""
+    x, scale, bias, mean, var, gy = _bn_case(cuda, (16, 100, 300), torch.bfloat16, True, 33,
+                                             torch.float32)
+    y, stat = ops_bn.batch_norm_train_plain(x, scale, bias, mean.clone(), var.clone(), 0.99,
+                                            1e-3)
+    got = ops_bn.batch_norm_train_backward(x, gy.contiguous(), stat, torch.float32)
+    want = ops_bn.batch_norm_train_backward_plain(x, gy, stat, torch.float32)
+    assert got[0].stride() == x.stride() and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2.0 ** -7, atol=1e-3)
+    torch.testing.assert_close(got[1:], want[1:], rtol=1e-4, atol=1e-4)
+    y2 = ops_bn.batch_norm_train(x, scale, bias, mean.clone(), var.clone(), 0.99, 1e-3)
+    torch.testing.assert_close(y2.float(), y.float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+def test_batch_norm_module_on_card_takes_the_kernels(cuda):
+    """models/layers.py's BatchNorm: train mode on the card launches the
+    kernels, counted by (B, L, C) and layout, x of other strides as a
+    contiguous copy; eval mode keeps the plain code; float64, which no
+    kernel takes, raises."""
+    from tf_kaldi_speaker_tpu_torch.models.layers import BatchNorm
+
+    m = BatchNorm(24).to(cuda).train()
+    ops_bn.batch_norm_train.shapes.clear()
+    x = torch.randn(4, 24, 10, device=cuda).transpose(1, 2)
+    m(x)
+    m(torch.randn(4, 10, 24, device=cuda, dtype=torch.bfloat16))
+    m(torch.randn(4, 10, 48, device=cuda)[..., ::2])
+    assert dict(ops_bn.batch_norm_train.shapes) == {((4, 10, 24), "float32.channels_first"): 1,
+                                                    ((4, 10, 24), "bfloat16"): 1,
+                                                    ((4, 10, 24), "float32"): 1}
+    n = ops_bn.batch_norm_train.launches
+    m.eval()(x)
+    with pytest.raises(ValueError, match="kernels need"):
+        m.double().train()(x.double())
+    assert ops_bn.batch_norm_train.launches == n
+    m.float()
+    with pytest.raises(ValueError, match="kernels need"):
+        ops_bn.batch_norm_train(x.double(), m.scale, m.bias, m.mean, m.var, 0.99, 1e-3)

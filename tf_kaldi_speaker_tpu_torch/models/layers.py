@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..ops.batchnorm import batch_norm_train
 from ..parallel.mesh import all_reduce
 
 VAR2STD_EPSILON = 1e-12
@@ -81,7 +82,13 @@ class BatchNorm(nn.Module):
     batch is the global one, as under pjit: the per-channel sums of x and
     x² and the row count are all-reduced over the group (a gradient
     all-reduces back the same way), so every rank normalizes with, and
-    moves its running statistics by, the same global statistics."""
+    moves its running statistics by, the same global statistics.
+
+    On a card, train mode runs the same arithmetic, ``group`` included, in
+    hand-written kernels (``ops/batchnorm.py``), which take a bf16 or
+    float32 x and raise for anything else; the sums are taken in another
+    order, the rest rounds as here. The train-mode code below is the
+    CPU's."""
 
     def __init__(self, width: int, momentum: float = 0.99, epsilon: float = TF_BN_EPSILON):
         super().__init__()
@@ -97,6 +104,9 @@ class BatchNorm(nn.Module):
         if not self.training:
             mul = torch.rsqrt(self.var + self.epsilon) * self.scale
             return (x - self.mean) * mul + self.bias
+        if x.device.type != "cpu":
+            return batch_norm_train(x, self.scale, self.bias, self.mean, self.var,
+                                    self.momentum, self.epsilon, self.group)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
         if self.group is None:

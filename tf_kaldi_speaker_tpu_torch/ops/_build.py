@@ -23,7 +23,7 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("cm_dequant.cu", "stats_pooling.cu", "stats_pooling_bwd.cu")
+SOURCES = ("cm_dequant.cu", "stats_pooling.cu", "stats_pooling_bwd.cu", "batchnorm.cu")
 HEADERS = ("vec4.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tfks_torch_kernels")
 NVCC_FLAGS = (
@@ -32,11 +32,16 @@ NVCC_FLAGS = (
 )
 
 _PTR, _INT, _INT_PTR = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_LL, _FLT = ctypes.c_longlong, ctypes.c_float
 # name -> argtypes; pointers, then B, L, D, then the stream. The tests'
 # tfks_stats_pooling_splits takes a bf16 flag first and a frame-split
 # count before the stream; the backward takes its plan (blocks, items,
 # frames per item) before the stream, and its geometry query a bf16 flag
-# and where to write its 4 numbers.
+# and where to write its 4 numbers. The BatchNorm kernels take the x and
+# parameter dtype flags, the layout and vector width, their pointers, then
+# outer, inner, C, splits, rows a split and the tile, then their float
+# scalars; a data group's finishes take the totals and the row count
+# first, then C.
 _ENTRY_POINTS = {
     "tfks_cm_dequantize": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "tfks_stats_pooling_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
@@ -45,6 +50,15 @@ _ENTRY_POINTS = {
     "tfks_stats_pooling_bwd_f32": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "tfks_stats_pooling_bwd_bf16": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "tfks_stats_pooling_bwd_geometry": [_INT, _INT_PTR],
+    "tfks_bn_train_stats": [_INT] * 3 + [_PTR] * 2 + [_INT] + [_PTR] * 4 + [_LL] + [_INT] * 5
+    + [_FLT] * 4 + [_PTR],
+    "tfks_bn_train_normalize": [_INT] * 3 + [_PTR] * 4 + [_INT, _LL] + [_INT] * 5 + [_PTR],
+    "tfks_bn_train_grad_stats": [_INT] * 3 + [_PTR] * 6 + [_INT, _PTR, _LL] + [_INT] * 5
+    + [_FLT, _PTR],
+    "tfks_bn_train_grad": [_INT] * 3 + [_PTR] * 5 + [_LL] + [_INT] * 5 + [_PTR],
+    "tfks_bn_train_sums": [_INT] * 4 + [_PTR] * 6 + [_LL] + [_INT] * 5 + [_PTR],
+    "tfks_bn_train_finish": [_PTR, _PTR, _INT, _PTR, _INT] + [_PTR] * 3 + [_FLT] * 3 + [_PTR],
+    "tfks_bn_train_grad_finish": [_PTR] * 3 + [_INT] + [_PTR] * 4 + [_INT, _PTR],
 }
 
 _lock = threading.Lock()
